@@ -1,0 +1,43 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and it
+never moves to the CPU on its own when a GPU was asked for."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import core as pt  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import json, sys
+import repro_torch, repro_torch.core, repro_torch.kernels.ops, repro_torch.kernels.build
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps(bad))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], env=env, capture_output=True, text=True, timeout=120,
+        check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_cuda_without_a_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.as_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.make_fleet_economy(seed=0)  # the default device is the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.random_market(10, 4)
+    assert pt.make_fleet_economy(seed=0, device="cpu").device.type == "cpu"
