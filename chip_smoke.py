@@ -6,13 +6,16 @@
 Builds the hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card, drives the port's
 main path at full size, and checks the main path on the card against itself
-through the plain versions.  The main path is three paths, each driven with
+through the plain versions.  The main path is four paths, each driven with
 the launch counts set to 0 just before it and read just after: the
 100k-agent §V economy (three binding epochs warm-started, three with cold
-restarts) through ``sparse_bid_eval_partials``, and the 100k x 1k standalone
+restarts) through ``sparse_bid_eval_partials``; the 100k x 1k standalone
 clock through ``sparse_bid_eval_csr_z`` (CSR book) and ``sparse_bid_eval_z``
-(padded book).  Each kernel is then held against its plain version and timed
-at its path's shapes on its path's inputs.  Any failed check raises; nothing
+(padded book); and the same market densified, the paper's §III encoding,
+through ``bid_eval``.  Each kernel is then held against its plain version and
+timed at its path's shapes on its path's inputs.  Phase [4] also provisions
+the quickstart and elastic-training books to device grants through
+``bid_eval`` and through its plain version.  Any failed check raises; nothing
 is caught and carried on.
 
 Output: progress lines, then the card's ``name, power.limit``, then one JSON
@@ -22,9 +25,11 @@ last line
 Without a visible GPU the script exits 2 and prints no result.
 
 Kernel times are CUDA-event timings of a CUDA graph that replays the call 20
-times, median of 20 replays after 3 warm-ups, with the book warm in L2 as the
-clock loop re-reads it every round.  Bounds use the H100 SXM's published
-3.35 TB/s and 67 TFLOP/s float32 (non-tensor) peaks.
+times (the dense plain version 5 times: each call allocates a 400 MB gather),
+median of 20 replays after 3 warm-ups, with the book warm in L2 as the clock
+loop re-reads it every round (the dense books, 1.2-1.6 GB, do not fit it).
+Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s float32
+(non-tensor) peaks.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 GRAPH_CALLS = 20  # calls captured in one timed graph
+DENSE_PLAIN_CALLS = 5  # the dense plain version allocates a 400 MB (U, R) gather per call
 REPLAYS = 20
 WARMUPS = 3
 
@@ -59,9 +65,9 @@ def check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def graph_ms(torch, fn) -> float:
-    """Median device ms of one ``fn()`` call: a CUDA graph holding
-    GRAPH_CALLS calls, replayed REPLAYS times between CUDA events."""
+def graph_ms(torch, fn, calls: int = GRAPH_CALLS) -> float:
+    """Median device ms of one ``fn()`` call: a CUDA graph holding ``calls``
+    calls, replayed REPLAYS times between CUDA events."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -71,7 +77,7 @@ def graph_ms(torch, fn) -> float:
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(GRAPH_CALLS):
+        for _ in range(calls):
             fn()
     for _ in range(WARMUPS):
         graph.replay()
@@ -82,7 +88,7 @@ def graph_ms(torch, fn) -> float:
         graph.replay()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop) / GRAPH_CALLS)
+        times.append(start.elapsed_time(stop) / calls)
     del graph
     return statistics.median(times)
 
@@ -105,6 +111,15 @@ def padded_bound(idx, val, mask, pi, prices, out_bytes: int) -> tuple[float, str
     # for vector pi) for the selection
     ops = u * b * (2 * k + (2 if pi.ndim == 2 else 1))
     return bound(nbytes(idx, val, mask, pi, prices), out_bytes + 4 * u, ops)
+
+
+def dense_bound(bundles, mask, pi, prices) -> tuple[float, str]:
+    """Only valid rows need reading (a masked bundle's row is never priced);
+    one multiply-add per valid (bundle, pool) and a compare per bundle."""
+    u, b, r = bundles.shape
+    valid = int(mask.sum())
+    ops = 2 * valid * r + u * b
+    return bound(4 * valid * r + nbytes(mask, pi, prices), 4 * u + 4 * r, ops)
 
 
 def csr_bound(idx, val, offsets, mask, pi, prices, r) -> tuple[float, str]:
@@ -143,6 +158,60 @@ def skewed_csr_book(torch, np, pt, dev, u, b, r, vector_pi, seed):
                                       device=dev)
     prices = torch.from_numpy(rng.random(r).astype(np.float32)).to(dev)
     return prob, prices
+
+
+def provisioning_books(pt, np, dev) -> dict:
+    """examples/quickstart.py's book (4 pools, three teams) and
+    examples/elastic_train.py's two ``run_auction`` books, packed dense on
+    ``dev``: label -> (problem, reserve prices, pools, user -> job, config)."""
+    pools = [
+        pt.ResourcePool("us-east", "tpu_chips", base_cost=10.0, utilization=0.93, supply=512),
+        pt.ResourcePool("us-east", "hbm_gb", base_cost=0.05, utilization=0.90, supply=8192),
+        pt.ResourcePool("eu-west", "tpu_chips", base_cost=10.0, utilization=0.35, supply=512),
+        pt.ResourcePool("eu-west", "hbm_gb", base_cost=0.05, utilization=0.30, supply=8192),
+    ]
+    idx = pt.pool_index([p.name for p in pools])
+    tilde_p = pt.reserve_prices(pools)
+    bl, pis = pt.operator_supply_bids(pools, tilde_p, lots=4)
+    jobs = [-1] * len(bl)
+
+    def both(chips, hbm):
+        return pt.OneOf(
+            pt.All(pt.Res("us-east/tpu_chips", chips), pt.Res("us-east/hbm_gb", hbm)),
+            pt.All(pt.Res("eu-west/tpu_chips", chips), pt.Res("eu-west/hbm_gb", hbm)))
+
+    teams = [(both(256, 4096), 6000.0),
+             (pt.All(pt.Res("us-east/tpu_chips", 128), pt.Res("us-east/hbm_gb", 2048)), 9000.0),
+             (both(128, 1024), 1500.0)]
+    for j, (tree, pi) in enumerate(teams):
+        bl.append(pt.flatten(tree, idx))
+        pis.append(pi)
+        jobs.append(j)
+    base = np.array([p.base_cost for p in pools])
+    books = {"quickstart": (pt.pack_bids(bl, pis, base_cost=base, device=dev), tilde_p, pools,
+                            jobs, pt.ClockConfig())}
+    for util_east, job_chips in ((0.93, 128), (0.20, 64)):
+        pools = [pt.ResourcePool("us-east", "tpu_chips", 10.0, util_east, supply=256),
+                 pt.ResourcePool("eu-west", "tpu_chips", 10.0, 0.30, supply=256)]
+        tilde_p = pt.reserve_prices(pools)
+        bl, pis = pt.operator_supply_bids(pools, tilde_p, lots=4)
+        jobs = [-1] * len(bl) + [0]
+        bl.append([np.array([job_chips, 0], np.float32), np.array([0, job_chips], np.float32)])
+        pis.append(job_chips * 10.0 * 4)
+        books[f"elastic us-east util {util_east} job {job_chips} chips"] = (
+            pt.pack_bids(bl, pis, base_cost=np.array([10.0, 10.0]), device=dev), tilde_p, pools,
+            jobs, pt.ClockConfig())
+    return books
+
+
+def dense_round_book(torch, dev, u, b, r, seed):
+    """The repo's ``bid_eval_round`` book (benchmarks/run.py): bundles
+    normal, mask < 0.9, pi normal * 5, prices |normal|; drawn on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((u, b, r), generator=g, device=dev),
+            torch.rand((u, b), generator=g, device=dev) < 0.9,
+            torch.randn((u,), generator=g, device=dev) * 5,
+            torch.randn((r,), generator=g, device=dev).abs())
 
 
 def z_tolerance(torch, sel_idx_flat, sel_val_flat, r):
@@ -198,6 +267,20 @@ def check_csr_kernel(torch, ops, ref, prob, prices, label):
     return z_err
 
 
+def check_dense_kernel(torch, ops, ref, book, label) -> float:
+    """bid_eval against its plain version: chosen exact, z bit-identical →
+    max |z err|."""
+    z, chosen = ops.bid_eval(*book)
+    torch.cuda.synchronize()
+    z_ref, chosen_ref = ref.bid_eval(*book)
+    z_err = float((z - z_ref).abs().max())
+    check(torch.equal(chosen, chosen_ref), f"{label}: bid_eval chosen differs")
+    check(torch.equal(z, z_ref), f"{label}: bid_eval z off by {z_err}")
+    log(f"  bid_eval {label}: chosen exact ({int((chosen >= 0).sum())} in), z bit-identical "
+        f"(max|err| {z_err}, max|z| {float(z_ref.abs().max()):.6g})")
+    return z_err
+
+
 def time_at_check_shape(torch, kernel, fn, bound_) -> None:
     ms = graph_ms(torch, fn)
     log(f"    {kernel}: {ms:.4f} ms, bound {bound_[0]:.4f} ms ({bound_[1]})")
@@ -241,6 +324,27 @@ def run(torch, np) -> dict:
         time_at_check_shape(torch, "sparse_bid_eval partials",
                             lambda: ops.sparse_bid_eval(*book, 1_000, 8),
                             padded_bound(*book, out_bytes=4 * 8 * 1_000))
+    round_book = dense_round_book(torch, dev, 100_000, 4, 1_000, seed=1)
+    check_dense_kernel(torch, ops, ref, round_book, "bid_eval_round 100000x4 R=1000")
+    bundles, mask, pi, prices = round_book
+    small = (bundles[:4096], mask[:4096], pi[:4096], prices)
+    check_dense_kernel(torch, ops, ref, (small[0], torch.zeros_like(small[1]), small[2], prices),
+                       "4096x4 R=1000, every bundle masked")
+    tied = small[0].clone()
+    tied[:, 2] = tied[:, 1]
+    tied[:, 0] = tied[:, 1]
+    check_dense_kernel(torch, ops, ref, (tied, small[1], small[2], prices),
+                       "4096x4 R=1000, bundles 0-2 tied")
+    for r in (4, 40, 59, 60, 100):  # both cost folds and the fold-regime edges
+        for u in (19, 20, 32, 33, 1000):  # every z-fold regime
+            book = (bundles[:u, :3, :r].contiguous(), mask[:u, :3].contiguous(), pi[:u],
+                    prices[:r].contiguous())
+            z, chosen = ops.bid_eval(*book)
+            z_ref, chosen_ref = ref.bid_eval(*book)
+            check(torch.equal(chosen, chosen_ref) and torch.equal(z, z_ref),
+                  f"bid_eval {u}x3 R={r} differs from its plain version")
+    log("  bid_eval at U in {19, 20, 32, 33, 1000} x R in {4, 40, 59, 60, 100}: "
+        "chosen exact, z bit-identical")
     # the first epoch's book at its start prices, the reserve curve
     probe = pt.fleet_economy(100_000, 8, seed=0, device=dev)
     eco_prob = probe.pack_bid_book().problem
@@ -263,9 +367,10 @@ def run(torch, np) -> dict:
 
     # -- 3. the main path at full size: each path's launches counted alone ---
     log("[3] main path: fleet_economy(100_000, 8, seed=0), 3 binding epochs warm-started, "
-        "3 with cold restarts; then the 100k x 1k standalone clock, CSR and padded")
+        "3 with cold restarts; then the 100k x 1k standalone clock, CSR, padded and dense")
     planet = pt.random_market(100_000, 1_000, seed=0, device=dev)
     planet_csr = pt.csr_from_padded(planet)
+    planet_dense = pt.densify(planet)
     # warm_start=True: each clock starts at max(p_prev, reserve), the
     # production setting (cold, then two warm epochs).  The default cold
     # restart re-seeds every clock from the reserve curve (the paper's
@@ -301,9 +406,11 @@ def run(torch, np) -> dict:
     cfg = pt.ClockConfig(alpha=0.6, delta=0.25)
     p0 = torch.full((1_000,), 0.1, device=dev)
     clock_prices = {}
+    clock_rounds_of = {}
     for name, problem, kernel in (
         ("csr", planet_csr, "sparse_bid_eval_csr_z"),
         ("padded", planet, "sparse_bid_eval_z"),
+        ("dense", planet_dense, "bid_eval"),
     ):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -321,7 +428,10 @@ def run(torch, np) -> dict:
         check(bool(torch.isfinite(res.prices).all()), f"standalone {name}: prices")
         check(path_launches[name][kernel] > rounds, f"standalone {name}: {kernel} not launched")
         clock_prices[name] = res.prices
+        clock_rounds_of[name] = (rounds, wall * 1e3)
     log(f"  launches per path: {path_launches}")
+    log("  planet clock rounds (ms): " + ", ".join(
+        f"{name} {rounds} ({ms:.1f})" for name, (rounds, ms) in clock_rounds_of.items()))
 
     # -- the kernels at the main path's shapes, on the path's own inputs ------
     log("[timing] kernels against their plain versions at the main path's shapes (CUDA graphs)")
@@ -355,6 +465,25 @@ def run(torch, np) -> dict:
     cb_ms, cb_by = csr_bound(*c_args[:6], 1_000)
     log(f"  sparse_bid_eval_csr_z {planet_csr.num_users}x{planet_csr.num_bundles} "
         f"nnz={planet_csr.nnz}: {c_ms:.4f} ms, plain {cp_ms:.4f} ms, bound {cb_ms:.4f} ms ({cb_by})")
+    du, db, dr = planet_dense.bundles.shape
+    dense_args = (planet_dense.bundles, planet_dense.bundle_mask, planet_dense.pi)
+    dense_err = max(
+        check_dense_kernel(torch, ops, ref, (*dense_args, prices.contiguous()),
+                           f"dense planet {du}x{db} R={dr} at {at} prices")
+        for at, prices in (("start", p0), ("cleared", clock_prices["dense"])))
+    d_ms = graph_ms(torch, lambda: ops.bid_eval(*dense_args, p0))
+    dp_ms = graph_ms(torch, lambda: ops.bid_eval(*dense_args, p0, plain=True), DENSE_PLAIN_CALLS)
+    db_ms, db_by = dense_bound(*dense_args, p0)
+    flat = planet_dense.bundles.reshape(du * db, dr)
+    mv_ms = graph_ms(torch, lambda: torch.mv(flat, p0))
+    log(f"  bid_eval dense planet {du}x{db} R={dr}: {d_ms:.4f} ms, plain {dp_ms:.4f} ms "
+        f"({DENSE_PLAIN_CALLS}-call graphs), bound {db_ms:.4f} ms ({db_by}); "
+        f"torch.mv of the cost product alone {mv_ms:.4f} ms")
+    r_ms = graph_ms(torch, lambda: ops.bid_eval(*round_book))
+    rp_ms = graph_ms(torch, lambda: ops.bid_eval(*round_book, plain=True), DENSE_PLAIN_CALLS)
+    rb_ms, rb_by = dense_bound(*round_book)
+    log(f"  bid_eval bid_eval_round 100000x4 R=1000: {r_ms:.4f} ms, plain {rp_ms:.4f} ms "
+        f"({DENSE_PLAIN_CALLS}-call graphs), bound {rb_ms:.4f} ms ({rb_by})")
     # the warm-started economy's cold epoch 0, its clock alone: the rest of
     # the epoch's wall-clock is host work
     torch.cuda.synchronize()
@@ -384,10 +513,43 @@ def run(torch, np) -> dict:
         check(sk.converged and sk.system_ok, f"10k epoch {epoch} not converged/feasible")
         log(f"  epoch {epoch}: {sk.rounds} rounds, prices and chosen bit-identical")
     check(np.array_equal(eco_k.pop.placed, eco_p.pop.placed), "10k placement differs")
+    log("[4] provisioning: quickstart and elastic-training books to device grants, "
+        "bid_eval vs its plain version on the card")
+    for label, book in provisioning_books(pt, np, dev).items():
+        prob, tilde_p, pools, user_jobs, config = book
+        start = torch.from_numpy(np.asarray(tilde_p, np.float32)).to(dev)
+        results = {
+            plain: pt.clock_auction(prob, start, config, ops.bid_demand_fn(plain=plain))
+            for plain in (False, True)
+        }
+        grants = {
+            plain: pt.grants_from_allocation(
+                res, ["team-A", "team-B", "team-C"], [p.cluster for p in pools],
+                [p.rtype for p in pools], user_jobs)
+            for plain, res in results.items()
+        }
+        rk, rp = results[False], results[True]
+        check(torch.equal(rk.prices, rp.prices) and int(rk.rounds) == int(rp.rounds)
+              and torch.equal(rk.chosen_bundle, rp.chosen_bundle), f"{label}: kernel vs plain")
+        check(grants[False] == grants[True] and len(grants[False]) > 0, f"{label}: grants differ")
+        flags = pt.verify_system(prob, rk)
+        check(all(flags.values()), f"{label}: SYSTEM {flags}")
+        log(f"  {label}: {int(rk.rounds)} rounds, prices {rk.prices.tolist()}, grants "
+            f"{[(g.job, g.cluster, g.chips, round(g.unit_price, 4)) for g in grants[False]]}; "
+            f"prices, rounds, chosen and grants bit-identical, SYSTEM feasible")
 
     padded_src = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/sparse_bid_eval.cu",
                   "replaces": "src/repro/kernels/sparse_bid_eval.py:124", "library_ms": None}
     kernels = [
+        {"name": "bid_eval", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/clock_bid_eval.cu",
+         "replaces": "src/repro/kernels/clock_bid_eval.py:91", "library_ms": None,
+         "launches": path_launches["dense"]["bid_eval"], "max_abs_err": dense_err, "ms": d_ms,
+         "plain_ms": dp_ms, "bound_ms": db_ms, "bound_by": db_by,
+         "path": "standalone clock, dense book",
+         "shape": f"U={du} B={db} R={dr} scalar pi", "torch_mv_ms": mv_ms,
+         "bid_eval_round": {"shape": "U=100000 B=4 R=1000", "ms": r_ms, "plain_ms": rp_ms,
+                            "bound_ms": rb_ms}},
         {"name": "sparse_bid_eval_partials", **padded_src,
          "launches": path_launches["economy"]["sparse_bid_eval_partials"],
          "max_abs_err": parts_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,

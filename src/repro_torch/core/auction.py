@@ -11,8 +11,12 @@ the device.  Rounds after convergence are no-ops, as in the reference's
 ``while_loop`` body, and the host reads the done flag once every
 :data:`CHECK_EVERY` rounds, so a clock on the card is not a round trip per
 round.  Demand evaluation is the only thing that differs between
-settlement paths: the plain blocked fold here, or the kernels in
+settlement paths: the plain folds here, or the kernels in
 :mod:`repro_torch.kernels.ops`.  Multi-device settlement is not ported yet.
+
+Dense problems (``AuctionProblem``, the paper's §III encoding) evaluate
+demand in O(U·B·R) through ``bid_eval`` and settle to an ``AuctionResult``;
+sparse and CSR problems settle to a ``SparseAuctionResult``.
 """
 from __future__ import annotations
 
@@ -24,12 +28,16 @@ import torch
 
 from ..kernels import ops, ref
 from .types import (
+    AuctionProblem,
+    AuctionResult,
     CSRAuctionProblem,
     SparseAuctionProblem,
     SparseAuctionResult,
     csr_padded_views,
 )
 
+# dense demand_fn(bundles, mask, pi, prices)
+#     -> (z (R,), chosen (U,), active (U,))   [tagged dense_signature=True]
 # sparse demand_fn(idx, val, mask, pi, prices, num_resources)
 #     -> (z (R,), chosen (U,), active (U,))   [tagged sparse_signature=True]
 # CSR demand_fn(problem, prices, aux=None) -> (z, chosen, active)   [csr_signature]
@@ -37,6 +45,30 @@ DemandFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 # rounds between host reads of the clock's done flag
 CHECK_EVERY = 8
+
+
+def bundle_costs(bundles: torch.Tensor, mask: torch.Tensor, prices: torch.Tensor) -> torch.Tensor:
+    """(U, B) costs of dense bundles (the pinned dense fold, see
+    :func:`ref.dense_costs`), +inf on invalid bundles."""
+    return torch.where(mask, ref.dense_costs(bundles, prices), float("inf"))
+
+
+def proxy_demand(bundles, mask, pi, prices):
+    """Paper eq. (1)-(2) bidder proxies on the dense book → ``(x (U, R),
+    chosen, active)``: scalar π takes the first cheapest bundle while
+    affordable, vector π the first highest-surplus bundle while surplus ≥ 0."""
+    costs = bundle_costs(bundles, mask, prices)
+    if pi.ndim == 1:
+        best = costs.min(dim=1).values
+        bhat = ref._first_extremum(costs, best)
+        active = best <= pi
+    else:
+        surplus = torch.where(mask, pi - costs, float("-inf"))
+        best = surplus.max(dim=1).values
+        bhat = ref._first_extremum(surplus, best)
+        active = best >= 0.0
+    chosen = torch.where(active, bhat, -1).to(torch.int32)
+    return ref.selected_rows(bundles, chosen), chosen, active
 
 
 def sparse_bundle_costs(
@@ -287,21 +319,24 @@ def _sparse_settle(idx, val, prices, chosen, active, num_resources: int, exact: 
 
 
 def clock_auction(
-    problem: SparseAuctionProblem | CSRAuctionProblem,
+    problem: AuctionProblem | SparseAuctionProblem | CSRAuctionProblem,
     start_prices: torch.Tensor,
     config: ClockConfig = ClockConfig(),
     demand_fn: DemandFn | None = None,
-) -> SparseAuctionResult:
+) -> AuctionResult | SparseAuctionResult:
     """Run Algorithm 1 to convergence (or ``max_rounds``) and settle.
 
     The problem's tensors and ``start_prices`` must share one device.  The
     default demand fn is the kernel wrapper's adapter for the encoding
-    (:func:`ops.csr_bid_demand_fn` / :func:`ops.sparse_bid_demand_fn`): the
-    kernel on CUDA tensors, its plain version on CPU tensors.  A CSR book
-    with a padded-signature demand fn (the settlement family) runs on its
-    exact padded reconstruction, so it settles bit-identically to the padded
-    book.
+    (:func:`ops.bid_demand_fn` / :func:`ops.csr_bid_demand_fn` /
+    :func:`ops.sparse_bid_demand_fn`): the kernel on CUDA tensors, its plain
+    version on CPU tensors.  A CSR book with a padded-signature demand fn
+    (the settlement family) runs on its exact padded reconstruction, so it
+    settles bit-identically to the padded book.
     """
+    if isinstance(problem, AuctionProblem):
+        return _clock_auction_dense(problem, start_prices, config,
+                                    demand_fn or ops.bid_demand_fn())
     if isinstance(problem, CSRAuctionProblem):
         if demand_fn is None:
             demand_fn = ops.csr_bid_demand_fn()
@@ -318,13 +353,37 @@ def clock_auction(
         return _clock_auction_csr_native(problem, start_prices, config, demand_fn)
     if not isinstance(problem, SparseAuctionProblem):
         raise TypeError(
-            f"clock_auction takes SparseAuctionProblem or CSRAuctionProblem, got "
-            f"{type(problem).__name__}"
+            f"clock_auction takes AuctionProblem, SparseAuctionProblem or CSRAuctionProblem, "
+            f"got {type(problem).__name__}"
         )
     if getattr(demand_fn, "csr_signature", False):
         raise TypeError(f"demand_fn {demand_fn} evaluates CSR problems, got SparseAuctionProblem")
     return _clock_auction_padded(
         problem, start_prices, config, demand_fn or ops.sparse_bid_demand_fn()
+    )
+
+
+def _clock_auction_dense(problem, start_prices, config, demand_fn) -> AuctionResult:
+    if not getattr(demand_fn, "dense_signature", False):
+        raise TypeError(f"demand_fn {demand_fn} does not match the dense problem encoding")
+    bundles, mask, pi = problem.bundles, problem.bundle_mask, problem.pi
+    if config.break_ties:
+        pi = _apply_tie_jitter(pi, config)
+    rounds, prices = _run_clock(
+        lambda p: demand_fn(bundles, mask, pi, p)[0], start_prices, config,
+        problem.base_cost, problem.supply_scale,
+    )
+    _, chosen, active = demand_fn(bundles, mask, pi, prices)
+    x = ref.selected_rows(bundles, chosen)
+    # the reference re-reduces its materialized allocations here: a reduce
+    # that stands alone, a left fold even for 16..32 users
+    z = ref.block_fold(x.T, vectorized=False)
+    return AuctionResult(
+        prices=prices, allocations=x, chosen_bundle=chosen, won=active,
+        # the row·price fold of the cost pass (payments are float-close to
+        # the reference's x @ p)
+        payments=ref.dense_costs(x, prices), excess_demand=z, rounds=rounds,
+        converged=(z <= config.tol).all(),
     )
 
 
@@ -375,20 +434,24 @@ def _clock_auction_csr_native(problem, start_prices, config, demand_fn) -> Spars
 
 
 def verify_system(
-    problem: SparseAuctionProblem | CSRAuctionProblem,
-    result: SparseAuctionResult,
+    problem: AuctionProblem | SparseAuctionProblem | CSRAuctionProblem,
+    result: AuctionResult | SparseAuctionResult,
     atol: float = 1e-3,
 ) -> dict[str, bool]:
     """Check the settled (x, p) against every SYSTEM constraint; returns a
     dict of named booleans (all True = a feasible point of SYSTEM)."""
     mask, pi = problem.bundle_mask, problem.pi
     p, won = result.prices, result.won
-    if isinstance(problem, CSRAuctionProblem):
-        vidx, vval = csr_padded_views(problem)
+    if isinstance(problem, AuctionProblem):
+        costs = bundle_costs(problem.bundles, mask, p)
+        lost_zero = (result.allocations == 0).all(dim=1)
     else:
-        vidx, vval = problem.idx, problem.val
-    costs = sparse_bundle_costs(vidx, vval, mask, p)
-    lost_zero = (result.alloc_val == 0).all(dim=1)
+        if isinstance(problem, CSRAuctionProblem):
+            vidx, vval = csr_padded_views(problem)
+        else:
+            vidx, vval = problem.idx, problem.val
+        costs = sparse_bundle_costs(vidx, vval, mask, p)
+        lost_zero = (result.alloc_val == 0).all(dim=1)
     min_cost = costs.min(dim=1).values
     pay = result.payments
     scale = 1.0 + pay.abs()

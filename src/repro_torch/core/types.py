@@ -1,10 +1,12 @@
-"""Core datatypes of the port: resource pools and the two sparse bid books.
+"""Core datatypes of the port: resource pools and the three bid books.
 
-Counterpart of ``repro.core.types`` (the dense ``AuctionProblem`` and the
-service's ``MarketBook`` are not ported yet).  A *pool* is a (cluster,
-resource type) pair; a *user* submits an XOR set of bundles over the R pools
-(positive = buy, negative = sell) with willingness-to-pay π.
+Counterpart of ``repro.core.types`` (the service's ``MarketBook`` is not
+ported yet).  A *pool* is a (cluster, resource type) pair; a *user* submits
+an XOR set of bundles over the R pools (positive = buy, negative = sell)
+with willingness-to-pay π.
 
+* ``AuctionProblem``: dense ``bundles (U, B, R) float32``, the paper's §III
+  encoding (``pack_bids``);
 * ``SparseAuctionProblem``: per-bundle (idx, val) nonzeros padded to K —
   ``idx (U, B, K) int32`` / ``val (U, B, K) float32``, padded slots
   ``(0, 0.0)``, nonzeros in ascending pool order;
@@ -54,6 +56,59 @@ class ResourcePool:
         return f"{self.cluster}/{self.rtype}"
 
 
+def _premium(won: torch.Tensor, payments: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """Paper eq. (5): γ_u = |π_u − x_uᵀp| / |x_uᵀp| for winners, NaN otherwise."""
+    absp = payments.abs()
+    gamma = (pi - payments).abs() / torch.where(absp > 0, absp, 1.0)
+    return torch.where(won & (absp > 0), gamma, float("nan"))
+
+
+@dataclasses.dataclass(frozen=True)
+class AuctionProblem:
+    """Dense bid book (tensors on one device).
+
+    bundles (U, B, R) float32, row (u, b) the b-th XOR alternative of user u
+    (padded rows 0); bundle_mask (U, B) bool; pi (U,) scalar or (U, B)
+    vector willingness-to-pay; base_cost and supply_scale (R,) float32.
+    """
+
+    bundles: torch.Tensor
+    bundle_mask: torch.Tensor
+    pi: torch.Tensor
+    base_cost: torch.Tensor
+    supply_scale: torch.Tensor
+
+    @property
+    def num_users(self) -> int:
+        return self.bundles.shape[0]
+
+    @property
+    def num_bundles(self) -> int:
+        return self.bundles.shape[1]
+
+    @property
+    def num_resources(self) -> int:
+        return self.bundles.shape[2]
+
+
+@dataclasses.dataclass(frozen=True)
+class AuctionResult:
+    """One clock auction settled on an AuctionProblem."""
+
+    prices: torch.Tensor  # (R,) settled unit prices
+    allocations: torch.Tensor  # (U, R) awarded bundle (0 if lost)
+    chosen_bundle: torch.Tensor  # (U,) int32, −1 if lost
+    won: torch.Tensor  # (U,) bool
+    payments: torch.Tensor  # (U,) x_uᵀp* (negative = revenue to a seller)
+    excess_demand: torch.Tensor  # (R,) z at the settled prices
+    rounds: torch.Tensor  # () int32 clock rounds run
+    converged: torch.Tensor  # () bool
+
+    def premium(self, pi: torch.Tensor) -> torch.Tensor:
+        """Paper eq. (5): γ_u = |π_u − x_uᵀp| / |x_uᵀp| for winners."""
+        return _premium(self.won, self.payments, pi)
+
+
 @dataclasses.dataclass(frozen=True)
 class SparseAuctionProblem:
     """K-padded sparse bid book (tensors on one device).
@@ -96,6 +151,20 @@ class SparseAuctionResult:
     excess_demand: torch.Tensor  # (R,) z at the settled prices
     rounds: torch.Tensor  # () int32 clock rounds run
     converged: torch.Tensor  # () bool
+
+    def premium(self, pi: torch.Tensor) -> torch.Tensor:
+        """Paper eq. (5): γ_u = |π_u − x_uᵀp| / |x_uᵀp| for winners."""
+        return _premium(self.won, self.payments, pi)
+
+    def allocations_dense(self, num_resources: int) -> torch.Tensor:
+        """(U, R) dense allocation matrix (duplicate pool indices add up)."""
+        u, k = self.alloc_idx.shape
+        rows = torch.arange(u, device=self.alloc_idx.device).repeat_interleave(k)
+        out = torch.zeros((u, num_resources), dtype=torch.float32, device=self.alloc_idx.device)
+        return out.index_put_(
+            (rows, self.alloc_idx.reshape(-1).long()), self.alloc_val.reshape(-1).float(),
+            accumulate=True,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,6 +422,84 @@ def sparse_problem_from_arrays(
         base_cost=_tensor(np.asarray(base_cost, np.float32), dev),
         supply_scale=_tensor(np.asarray(supply_scale, np.float32), dev),
         num_resources=num_res,
+    )
+
+
+def pack_bids(
+    bundle_lists: Sequence[Sequence[np.ndarray]],
+    pis: Sequence[float],
+    base_cost: np.ndarray,
+    supply_scale: np.ndarray | None = None,
+    device: str | torch.device = "cuda",
+) -> AuctionProblem:
+    """Pack per-user XOR bundle lists (dense (R,) vectors) into an
+    AuctionProblem on ``device``; the host arrays are the reference's, byte
+    for byte."""
+    dev = as_device(device)
+    num_users = len(bundle_lists)
+    num_res = int(np.asarray(base_cost).shape[0])
+    max_b = max((len(bl) for bl in bundle_lists), default=1) or 1
+    bundles = np.zeros((num_users, max_b, num_res), dtype=np.float32)
+    mask = np.zeros((num_users, max_b), dtype=bool)
+    for u, bl in enumerate(bundle_lists):
+        for b, q in enumerate(bl):
+            bundles[u, b] = np.asarray(q, dtype=np.float32)
+            mask[u, b] = True
+    if supply_scale is None:
+        # total offered + demanded volume per pool, floored at 1
+        supply_scale = np.maximum(np.abs(bundles).sum(axis=(0, 1)), 1.0)
+    return AuctionProblem(
+        bundles=_tensor(bundles, dev),
+        bundle_mask=_tensor(mask, dev),
+        pi=_tensor(np.asarray(pis, dtype=np.float32), dev),
+        base_cost=_tensor(np.asarray(base_cost, dtype=np.float32), dev),
+        supply_scale=_tensor(np.asarray(supply_scale, dtype=np.float32), dev),
+    )
+
+
+def sparsify(problem: AuctionProblem, k_max: int | None = None) -> SparseAuctionProblem:
+    """Dense → K-padded conversion on the host; nonzeros keep ascending pool
+    order.  ``k_max`` below the densest bundle's nnz raises."""
+    dev = problem.bundles.device
+    bundles = problem.bundles.cpu().numpy()
+    r = bundles.shape[-1]
+    nz = bundles != 0
+    counts = nz.sum(axis=-1)
+    nnz_max = max(int(counts.max()) if counts.size else 0, 1)
+    if k_max is None:
+        k_max = nnz_max
+    elif k_max < nnz_max:
+        raise ValueError(f"k_max={k_max} < densest bundle nnz={nnz_max}")
+    # a stable sort moves the nonzero positions to the front, ascending
+    order = np.argsort(~nz, axis=-1, kind="stable")[..., :k_max]
+    val = np.take_along_axis(bundles, order, axis=-1)
+    live = np.arange(k_max)[None, None, :] < counts[..., None]
+    return SparseAuctionProblem(
+        idx=_tensor(np.where(live, order, 0).astype(np.int32), dev),
+        val=_tensor(np.where(live, val, 0.0).astype(np.float32), dev),
+        bundle_mask=problem.bundle_mask, pi=problem.pi, base_cost=problem.base_cost,
+        supply_scale=problem.supply_scale, num_resources=r,
+    )
+
+
+def densify(problem: SparseAuctionProblem) -> AuctionProblem:
+    """K-padded → dense conversion on the host (duplicate pool indices
+    within a bundle add up)."""
+    dev = problem.idx.device
+    idx = problem.idx.cpu().numpy()
+    val = problem.val.cpu().numpy()
+    u, b, k = idx.shape
+    bundles = np.zeros((u, b, problem.num_resources), np.float32)
+    uu, bb = np.meshgrid(np.arange(u), np.arange(b), indexing="ij")
+    np.add.at(
+        bundles,
+        (uu[..., None].repeat(k, -1).reshape(-1), bb[..., None].repeat(k, -1).reshape(-1),
+         idx.reshape(-1)),
+        val.reshape(-1),
+    )
+    return AuctionProblem(
+        bundles=_tensor(bundles, dev), bundle_mask=problem.bundle_mask, pi=problem.pi,
+        base_cost=problem.base_cost, supply_scale=problem.supply_scale,
     )
 
 

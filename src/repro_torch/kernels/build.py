@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("sparse_bid_eval", "sparse_bid_eval_csr")
+SOURCES = ("clock_bid_eval", "sparse_bid_eval", "sparse_bid_eval_csr")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

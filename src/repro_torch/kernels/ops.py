@@ -6,10 +6,10 @@ no fallback from one to the other.  ``plain=True`` forces the plain version
 on CUDA tensors too: it exists so a run on the card can hold the kernels
 against their plain versions, and nothing on the main path passes it.
 
-Each kernel entry point (``sparse_bid_eval_z``, ``sparse_bid_eval_partials``,
-``sparse_bid_eval_csr_z``) counts its launches (:func:`launch_counts`,
-:func:`reset_launch_counts`), so a run can show that its main path went
-through the kernels.  Kernels run on PyTorch's current
+Each kernel entry point (``bid_eval``, ``sparse_bid_eval_z``,
+``sparse_bid_eval_partials``, ``sparse_bid_eval_csr_z``) counts its launches
+(:func:`launch_counts`, :func:`reset_launch_counts`), so a run can show that
+its main path went through the kernels.  Kernels run on PyTorch's current
 stream and do not synchronise; outputs and scratch are allocated here.
 """
 from __future__ import annotations
@@ -22,6 +22,7 @@ from . import build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
+    ("clock_bid_eval", "bid_eval"): (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     ("sparse_bid_eval", "sparse_bid_eval_z"): (
         _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
     ),
@@ -73,6 +74,41 @@ def _check_book(idx, val, mask, pi, prices, num_resources):
     _check("mask", mask, torch.bool, (u, b), dev)
     _check("pi", pi, torch.float32, (u,) if pi.ndim == 1 else (u, b), dev)
     _check("prices", prices, torch.float32, (num_resources,), dev)
+
+
+def bid_eval(
+    bundles: torch.Tensor,
+    mask: torch.Tensor,
+    pi: torch.Tensor,
+    prices: torch.Tensor,
+    *,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One dense clock round, scalar π → ``(z (R,), chosen (U,) int32)``;
+    chosen exact and z bit-identical to :func:`.ref.bid_eval`."""
+    if bundles.device.type == "cpu" or plain:
+        return ref.bid_eval(bundles, mask, pi, prices)
+    if bundles.device.type != "cuda":
+        raise ValueError(f"bid_eval runs on CPU or CUDA tensors, got {bundles.device}")
+    if bundles.ndim != 3 or pi.ndim != 1:
+        raise ValueError(f"bid_eval takes (U, B, R) bundles and scalar (U,) pi, got "
+                         f"{tuple(bundles.shape)} and {tuple(pi.shape)}")
+    u, b, r = bundles.shape
+    dev = bundles.device
+    _check("bundles", bundles, torch.float32, (u, b, r), dev)
+    _check("mask", mask, torch.bool, (u, b), dev)
+    _check("pi", pi, torch.float32, (u,), dev)
+    _check("prices", prices, torch.float32, (r,), dev)
+    chosen = torch.empty(u, dtype=torch.int32, device=dev)
+    z = torch.empty(r, dtype=torch.float32, device=dev)
+    n_scratch = sum(-(-n // ref.FOLD_WINDOW) for n, _ in ref.fold_plan(u))
+    scratch = torch.empty(max(n_scratch, 1) * r, dtype=torch.float32, device=dev)
+    _launch(
+        "clock_bid_eval", "bid_eval",
+        bundles.data_ptr(), mask.data_ptr(), pi.data_ptr(), prices.data_ptr(), u, b, r,
+        chosen.data_ptr(), scratch.data_ptr(), z.data_ptr(), _stream(dev),
+    )
+    return z, chosen
 
 
 def sparse_bid_eval(
@@ -182,6 +218,26 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # demand-fn adapters (the auction's DemandFn signatures)
 # ---------------------------------------------------------------------------
+
+
+def bid_demand_fn(plain: bool = False):
+    """Dense demand fn ``demand(bundles, mask, pi, prices) -> (z, chosen,
+    active)``.  Scalar π runs :func:`bid_eval`.  Vector π runs the
+    ``sparse_bid_eval`` kernel on the exact (idx, val) form of the book
+    (:func:`.ref.dense_to_sparse`, K = R), since the dense kernel has only
+    the scalar rule, and z folds the chosen rows as the reference's clock
+    does (:func:`.ref.dense_fold`)."""
+
+    def demand(bundles, mask, pi, prices):
+        if pi.ndim == 1:
+            z, chosen = bid_eval(bundles, mask, pi, prices, plain=plain)
+            return z, chosen, chosen >= 0
+        idx, val = ref.dense_to_sparse(bundles)
+        _, chosen = sparse_bid_eval(idx, val, mask, pi, prices, bundles.shape[-1], plain=plain)
+        return ref.dense_fold(ref.selected_rows(bundles, chosen).T), chosen, chosen >= 0
+
+    demand.dense_signature = True  # type: ignore[attr-defined]
+    return demand
 
 
 def csr_bid_demand_fn(plain: bool = False):

@@ -24,6 +24,25 @@ expression tree XLA compiles.  Three facts about that backend, pinned by
   rows it stays a left fold.  :func:`block_fold` is that tree.
 * **Cost folds with K ≥ 16** vectorize in yet another pattern; the port
   keeps the FMA left fold there, float-close to XLA, not bit-identical.
+
+The dense book (``bid_eval``, :func:`dense_costs`, :func:`dense_fold`) has
+two folds of its own, pinned by ``tests/test_torch_dense.py``:
+
+* **Dense cost fold.**  ``einsum("ubr,r->ub")`` stays a dot, emitted as an
+  elemental loop ``acc += b·p`` that LLVM contracts into FMAs.  For
+  R < :data:`DENSE_LANE_FOLD_MIN_R` the loop stays scalar: a left FMA fold
+  from 0 over all R terms (zero terms leave it unchanged, so it equals the
+  sparse K-term fold of the same bundle).  From R = 60 LLVM vectorizes the
+  loop with reassociation and the backend rechains the FMAs in an order
+  that changes with R; the port does not follow it there.  It folds R ≥ 60
+  in 32 strided lanes (lane t takes r = t, t+32, …, one FMA each) and
+  halves the lanes (16, 8, 4, 2, 1): the order a warp computes, float-close
+  to XLA (see ROADMAP queue 3).
+* **Dense z fold.**  ``x.sum(axis=0)`` of the gathered rows is one reduce
+  over users fused with the gather.  Up to 15 users it is a left fold, above
+  32 the windows of 32 of :func:`block_fold` (left folds, not vectorized);
+  from 16 to 32 users LLVM vectorizes the loop, and the tree depends on the
+  count (:func:`_dense_vector_fold`).
 """
 from __future__ import annotations
 
@@ -35,6 +54,9 @@ import torch
 ONEHOT_ROWS_MAX_R = 128
 # XLA's tree-reduction window on the CPU backend
 FOLD_WINDOW = 32
+# From this many pools the dense cost fold runs in 32 strided lanes
+DENSE_LANE_FOLD_MIN_R = 60
+LANES = 32
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +101,15 @@ def _left_fold(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _halve(v: torch.Tensor) -> torch.Tensor:
+    """Sum of the last axis (a power of two) by halving: lane l adds lane
+    l + n/2, until one lane is left — a warp's butterfly reduction."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
 def _vector_fold(x: torch.Tensor) -> torch.Tensor:
     """XLA's vectorized fused reduce of n ≤ 32 values (n ≥ 16).
 
@@ -100,9 +131,7 @@ def _vector_fold(x: torch.Tensor) -> torch.Tensor:
     if n - nmain >= 8:
         v = v + x[..., nmain : nmain + 8]
         pos = nmain + 8
-    v = v[..., 0:4] + v[..., 4:8]
-    v = v[..., 0:2] + v[..., 2:4]
-    acc = v[..., 0] + v[..., 1]
+    acc = _halve(v)
     for i in range(pos, n):
         acc = acc + x[..., i]
     return acc
@@ -133,6 +162,75 @@ def block_fold(x: torch.Tensor, vectorized: bool) -> torch.Tensor:
         x = _left_fold(xp.reshape(x.shape[:-1] + (nw, FOLD_WINDOW)))
         vectorized = False
     return _vector_fold(x) if vectorized else _left_fold(x)
+
+
+def _dense_vector_fold(x: torch.Tensor) -> torch.Tensor:
+    """XLA's vectorized reduce of 16..32 gathered rows (the dense z fold).
+
+    16..19 and 24..31 values fold as :func:`_vector_fold`.  20..23 values
+    halve the two 8-lane accumulators of the first 16, seed lane 0 of a
+    4-lane epilogue with that sum, add the next four, halve again and add
+    the rest one by one.  32 values chain their four 8-value chunks into one
+    accumulator, then halve.
+    """
+    n = x.shape[-1]
+    if n == 32:
+        v = x[..., 0:8] + x[..., 8:16]
+        v = v + x[..., 16:24]
+        return _halve(v + x[..., 24:32])
+    if 20 <= n < 24:
+        v = x[..., 16:20].clone()
+        v[..., 0] = _halve(x[..., 0:8] + x[..., 8:16]) + v[..., 0]
+        acc = _halve(v)
+        for i in range(20, n):
+            acc = acc + x[..., i]
+        return acc
+    return _vector_fold(x)
+
+
+def dense_fold(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU reduce over users of gathered dense rows, on the last axis
+    (see the module docstring)."""
+    if 16 <= x.shape[-1] <= FOLD_WINDOW:
+        return _dense_vector_fold(x)
+    return block_fold(x, vectorized=False)
+
+
+def dense_costs(bundles: torch.Tensor, prices: torch.Tensor) -> torch.Tensor:
+    """``Σ_r bundles[..., r]·prices[r]`` over the last axis, in the pinned
+    dense cost fold: a left FMA fold from 0 below R = 60, else 32 strided
+    FMA lanes halved (see the module docstring)."""
+    b, p = bundles.float(), prices.float()
+    r = b.shape[-1]
+    if r < DENSE_LANE_FOLD_MIN_R:
+        acc = torch.zeros(b.shape[:-1], dtype=torch.float32, device=b.device)
+        for i in range(r):
+            acc = fma(b[..., i], p[i], acc)
+        return acc
+    lanes = torch.zeros(b.shape[:-1] + (LANES,), dtype=torch.float32, device=b.device)
+    for c in range(0, r, LANES):
+        w = min(LANES, r - c)
+        lanes[..., :w] = fma(b[..., c : c + w], p[c : c + w], lanes[..., :w])
+    return _halve(lanes)
+
+
+def selected_rows(bundles: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
+    """(U, R) rows of the chosen bundles; zero rows for users that are out."""
+    pick = chosen.long().clamp(min=0)[:, None, None].expand(-1, 1, bundles.shape[-1])
+    rows = bundles.gather(1, pick)[:, 0, :].float()
+    return torch.where((chosen >= 0)[:, None], rows, 0.0)
+
+
+def dense_to_sparse(bundles: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact (idx, val) (U, B, R) of dense bundles, K = R: each bundle's
+    nonzeros first in ascending pool order, then (0, 0.0) slots (the
+    reference's ``kernels.ops._dense_to_sparse``)."""
+    r = bundles.shape[-1]
+    iota = torch.arange(r, device=bundles.device).expand_as(bundles)
+    order = torch.argsort(torch.where(bundles != 0, iota, iota + r), dim=-1)
+    val = bundles.gather(-1, order).float()
+    live = val != 0
+    return torch.where(live, order, 0).to(torch.int32), torch.where(live, val, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -237,8 +335,29 @@ def chain_sum(partials: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the two kernels' plain versions
+# the kernels' plain versions
 # ---------------------------------------------------------------------------
+
+
+def bid_eval(
+    bundles: torch.Tensor,  # (U, B, R) float32
+    mask: torch.Tensor,  # (U, B) bool
+    pi: torch.Tensor,  # (U,) float32, scalar π only
+    prices: torch.Tensor,  # (R,) float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One dense clock round → ``(z (R,), chosen (U,) int32, −1 = out)``.
+
+    A masked bundle costs +inf; each user takes its first cheapest bundle
+    and stays in while ``cost ≤ π`` (so a user with no valid bundle is in
+    only at π = +inf, as in the reference); z folds the chosen rows over
+    users with :func:`dense_fold`.
+    """
+    costs = torch.where(mask, dense_costs(bundles, prices), float("inf"))
+    best = costs.min(dim=1).values
+    bhat = _first_extremum(costs, best)
+    chosen = torch.where(best <= pi, bhat, -1).to(torch.int32)
+    return dense_fold(selected_rows(bundles, chosen).T), chosen
+
 
 
 def sparse_bid_eval(

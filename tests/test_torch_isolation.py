@@ -16,7 +16,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = """
 import json, sys
-import repro_torch, repro_torch.core, repro_torch.kernels.ops, repro_torch.kernels.build
+import repro_torch, repro_torch.core, repro_torch.core.provisioner
+import repro_torch.kernels.ops, repro_torch.kernels.build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps(bad))
