@@ -3,20 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, drives the port's
-main path at full size, and checks the main path on the card against itself
-through the plain versions.  The main path is four paths, each driven with
-the launch counts set to 0 just before it and read just after: the
-100k-agent §V economy (three binding epochs warm-started, three with cold
-restarts) through ``sparse_bid_eval_partials``; the 100k x 1k standalone
-clock through ``sparse_bid_eval_csr_z`` (CSR book) and ``sparse_bid_eval_z``
-(padded book); and the same market densified, the paper's §III encoding,
-through ``bid_eval``.  Each kernel is then held against its plain version and
-timed at its path's shapes on its path's inputs.  Phase [4] also provisions
-the quickstart and elastic-training books to device grants through
-``bid_eval`` and through its plain version.  Any failed check raises; nothing
-is caught and carried on.
+Builds the hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
+(four sources, one ``nvcc`` each, in parallel), holds each against its plain
+PyTorch version on the card, drives the port's main path at full size, and
+checks the main path on the card against itself through the plain versions.
+The main path is five paths, each driven with the launch counts set to 0
+just before it and read just after: the 100k-agent §V economy (three binding
+epochs warm-started, three with cold restarts) through
+``sparse_bid_eval_partials``; the 100k x 1k standalone clock through
+``sparse_bid_eval_csr_z`` (CSR book) and ``sparse_bid_eval_z`` (padded
+book); the same market densified, the paper's §III encoding, through
+``bid_eval``; and phase [5], ``rwkv6-7b`` at full width and depth (float32
+weights from seed 0, bf16 activations) serving 4 requests of 500 prompt
+tokens and 32 greedy new ones through ``serve.decode.generate``, its
+chunked prefill running the WKV recurrence through ``wkv6`` once a layer.
+Each kernel is then held against its plain version and timed at its path's
+shapes on its path's inputs (for ``wkv6``, the tensors layer 0 and layer 31
+hand it in the served prefill).  Phase [4] also provisions the quickstart
+and elastic-training books to device grants through ``bid_eval`` and
+through its plain version; phase [5] also runs the whole model with
+``wkv6`` forced to its plain version, and the chunked prefill against
+token-by-token decode.  Any failed check raises; nothing is caught and
+carried on.
 
 Output: progress lines, then the card's ``name, power.limit``, then one JSON
 line ``{"kernels": [...]}`` with one entry per kernel entry point, then the
@@ -29,10 +37,14 @@ times (the dense plain version 5 times: each call allocates a 400 MB gather),
 median of 20 replays after 3 warm-ups, with the book warm in L2 as the clock
 loop re-reads it every round (the dense books, 1.2-1.6 GB, do not fit it).
 Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s float32
-(non-tensor) peaks.
+(non-tensor) peaks and, for ``wkv6``'s exponentials and logs, 16 SFU
+operations a clock on each of the 132 SMs at the card's maximum SM clock.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -298,19 +310,10 @@ def recording(fn, last: dict):
     return demand
 
 
-def run(torch, np) -> dict:
+def market_paths(torch, np, dev) -> list[dict]:
+    """Phases [2]-[4], the market's paths → their kernels' entries."""
     from repro_torch import core as pt
-    from repro_torch.kernels import build, ops, ref
-
-    dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
-
-    # -- 1. build -------------------------------------------------------------
-    build_s = build.build_all()
-    log(f"[1] built {', '.join(build.SOURCES)} with nvcc for sm_90a in {build_s:.2f} s")
+    from repro_torch.kernels import ops, ref
 
     # -- 2. kernels against their plain versions ----------------------------
     log("[2] kernels against their plain versions")
@@ -569,6 +572,275 @@ def run(torch, np) -> dict:
          "shape": f"U={planet_csr.num_users} B={planet_csr.num_bundles} nnz={planet_csr.nnz} "
                   f"k_bound={planet_csr.k_bound} R=1000 scalar pi"},
     ]
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# [5] rwkv6-7b serving through wkv6
+# ---------------------------------------------------------------------------
+
+MUFU_PER_CLOCK_PER_SM = 16  # H100 SFU throughput (exp2, log2) a clock on one SM
+H100_SMS = 132
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 500, 32
+WKV6_TOL = 1e-4  # max|kernel - plain| <= WKV6_TOL * max|plain|, for o and the state
+LOGITS_TOL = 1e-3  # float32 model: max|delta logits| <= LOGITS_TOL * max|logits|
+DECODE_GRAPH_CALLS = 2  # decode steps captured in one timed graph (each reads 30 GB)
+
+
+@contextlib.contextmanager
+def wkv6_calls(ops, wrap):
+    """While active, the model's ``ops.wkv6`` calls go through
+    ``wrap(kernel_wrapper, *args)``: to record their inputs, or to force the
+    plain version."""
+    kernel_wrapper = ops.wkv6
+    ops.wkv6 = functools.partial(wrap, kernel_wrapper)
+    try:
+        yield
+    finally:
+        ops.wkv6 = kernel_wrapper
+
+
+def force_plain(fn, *args, **kwargs):
+    return fn(*args, plain=True, **kwargs)
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def wkv6_bound(r, k, v, w, u, state, chunk) -> tuple[float, str, dict]:
+    """(bound_ms, bound_by, parts) of one wkv6 call: the largest of bytes
+    (r, k, v at their dtype, w, u and the initial state read; o and the
+    final state written in float32) over the HBM rate; the exponentials and
+    logs the chunked algebra needs over the SFU rate; its float32 FMAs (two
+    operations each) over the float32 peak."""
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    L = min(chunk, t)
+    n_chunks = -(-t // L)
+    read = nbytes(r, k, v, w, u) + (0 if state is None else nbytes(state))
+    write = 4 * b * t * h * vd + 4 * b * h * kd * vd
+    sfu = b * h * n_chunks * (L * (L - 1) // 2 * kd + 2 * L * kd + kd) + b * h * t * kd
+    fmas = b * h * n_chunks * (2 * L * kd * vd + L * (L - 1) // 2 * (kd + vd) + L * vd)
+    parts = {"bytes": (read + write) / HBM_BYTES_PER_S * 1e3,
+             "sfu": sfu / (MUFU_PER_CLOCK_PER_SM * H100_SMS * sm_clock_hz()) * 1e3,
+             "fma": 2 * fmas / FP32_OPS_PER_S * 1e3}
+    by = max(parts, key=parts.get)
+    return parts[by], "bytes" if by == "bytes" else "operations", parts
+
+
+def check_wkv6(torch, ops, args, label) -> float:
+    """The kernel against its plain version on one call's inputs → max|o err|."""
+    o, s = ops.wkv6(*args)
+    torch.cuda.synchronize()
+    o_ref, s_ref = ops.wkv6(*args, plain=True)
+    errs = {}
+    for name, got, want in (("o", o, o_ref), ("state", s, s_ref)):
+        errs[name] = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and errs[name] <= WKV6_TOL * scale,
+              f"wkv6 {label}: {name} off by {errs[name]} (max|{name}| {scale})")
+    log(f"  wkv6 {label}: max|o err| {errs['o']:.3g} (max|o| {float(o_ref.abs().max()):.4g}), "
+        f"max|state err| {errs['state']:.3g} (max|state| {float(s_ref.abs().max()):.4g})")
+    return errs["o"]
+
+
+def serving(torch, dev) -> dict:
+    """Phase [5]: rwkv6-7b at full width and depth serves 4 requests of 500
+    prompt tokens and 32 greedy new ones; its prefill runs the recurrence
+    through ``wkv6`` → the kernel's entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_api
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serve.decode import generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    cfg = get_config("rwkv6-7b")
+    api = get_api(cfg)
+    log(f"[5] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv.head_size} heads of {cfg.rwkv.head_size}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, activations {cfg.act_dtype}, "
+        f"{count_params(api.decls(cfg)):,} float32 parameters from seed 0")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
+                         torch.float32, dev)
+    torch.cuda.synchronize()
+    log(f"  init {time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"on the card")
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+
+    # -- the main path: its launches counted alone; layer 0's and the last
+    #    layer's wkv6 inputs recorded for the checks below
+    calls = []
+
+    def record(fn, *args):
+        calls.append(args if len(calls) in (0, cfg.num_layers - 1) else None)
+        return fn(*args)
+
+    with wkv6_calls(ops, record):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompt, SERVE_NEW)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    log(f"  generate {SERVE_BATCH} x ({SERVE_PROMPT} prompt + {SERVE_NEW} new) greedy: "
+        f"{serve_s * 1e3:.1f} ms, {SERVE_BATCH * SERVE_NEW / serve_s:.1f} new tok/s; launches "
+        f"{launches}")
+    check(launches["wkv6"] == cfg.num_layers,
+          f"wkv6 launched {launches['wkv6']} times, not once a layer ({cfg.num_layers})")
+    check(sum(launches.values()) == launches["wkv6"], "another kernel ran on the serving path")
+    check(tuple(out.shape) == (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
+          and torch.equal(out[:, :SERVE_PROMPT], prompt.to(torch.int32))
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generated tokens")
+    log(f"  request 0 continues with {out[0, SERVE_PROMPT:].tolist()}")
+
+    # -- the same requests again, prefill and decode timed apart: the same
+    #    tokens come out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = api.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, device=dev)
+    with torch.inference_mode():
+        logits, cache = api.decode_step(params, cache, prompt, 0, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_logits = logits
+        cur = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+        toks = [cur]
+        t0 = time.perf_counter()
+        for i in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_NEW - 1):
+            logits, cache = api.decode_step(params, cache, cur, i, cfg)
+            cur = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(cur)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (SERVE_NEW - 1)
+    check(torch.equal(torch.cat(toks, 1), out[:, SERVE_PROMPT:]), "a second run gives other tokens")
+    # device time of one decode step, replayed from a CUDA graph: the rest of
+    # the host-clock step is the card waiting for the host
+    with torch.inference_mode():
+        step_ms = graph_ms(torch, lambda: api.decode_step(params, cache, cur, SERVE_PROMPT, cfg),
+                           DECODE_GRAPH_CALLS)
+    check(bool(torch.isfinite(prefill_logits.float()).all())
+          and tuple(prefill_logits.shape) == (SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size),
+          "prefill logits")
+    log(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT}: {prefill_ms:.1f} ms "
+        f"({SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3:.0f} prompt tok/s); decode "
+        f"{decode_ms:.2f} ms a step of {SERVE_BATCH} tokens "
+        f"({SERVE_BATCH / decode_ms * 1e3:.1f} tok/s), of which {step_ms:.2f} ms on the card "
+        f"(a CUDA graph of the step; idle {1 - step_ms / decode_ms:.1%}); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # -- the kernel against its plain version on the served tensors ----------
+    first, last = calls[0], calls[cfg.num_layers - 1]
+    err = max(check_wkv6(torch, ops, first, "layer 0 of the served prefill"),
+              check_wkv6(torch, ops, last, f"layer {cfg.num_layers - 1} of the served prefill"))
+    _, s_first = ops.wkv6(*first, plain=True)
+    ragged = tuple(a[:, :37].contiguous() for a in first[:4]) + (first[4], s_first, first[6])
+    err = max(err, check_wkv6(torch, ops, ragged, "T=37 from a non-zero state"))
+    k_ms = graph_ms(torch, lambda: ops.wkv6(*first))
+    p_ms = graph_ms(torch, lambda: ops.wkv6(*first, plain=True), DENSE_PLAIN_CALLS)
+    b_ms, b_by, parts = wkv6_bound(*first)
+    r = first[0]
+    shape = (f"B={r.shape[0]} T={r.shape[1]} H={r.shape[2]} K={r.shape[3]} "
+             f"V={first[2].shape[3]} L={min(first[6], r.shape[1])}, r/k/v {r.dtype}")
+    log(f"  wkv6 {shape}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({DENSE_PLAIN_CALLS}-call graphs), "
+        f"bound {b_ms:.4f} ms ({b_by}; bytes {parts['bytes']:.4f}, exp/log {parts['sfu']:.4f}, "
+        f"FMAs {parts['fma']:.4f})")
+    del calls, first, last, ragged, s_first
+
+    # -- the whole model, kernel against plain ------------------------------
+    cfg32 = cfg.replace(act_dtype="float32")
+    with torch.inference_mode():
+        def prefill(c, tokens):
+            return api.decode_step(params, api.init_cache(c, tokens.shape[0], tokens.shape[1],
+                                                          device=dev), tokens, 0, c)[0]
+
+        short = prompt[:, :128]
+        got = prefill(cfg32, short)
+        with wkv6_calls(ops, force_plain):
+            want = prefill(cfg32, short)
+        d32 = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(d32 <= LOGITS_TOL * scale, f"float32 model: logits off by {d32} (max {scale})")
+        with wkv6_calls(ops, force_plain):
+            want16 = prefill(cfg, prompt).float()
+        got16 = prefill_logits.float()
+        d16 = float((got16 - want16).abs().max())
+        mean16 = float((got16 - want16).abs().mean())
+        agree = int((got16.argmax(-1) == want16.argmax(-1)).sum())
+        # the bf16 model's own rounding, for scale: the same prompt with
+        # float32 activations, both through the kernel
+        del want16
+        full32 = prefill(cfg32, prompt)
+        d_act = float((got16 - full32).abs().max())
+        mean_act = float((got16 - full32).abs().mean())
+        agree_act = int((got16.argmax(-1) == full32.argmax(-1)).sum())
+        del full32
+        positions = got16.shape[0] * got16.shape[1]
+        log(f"  whole model, wkv6 kernel vs plain: float32 activations, {SERVE_BATCH} x "
+            f"{short.shape[1]}: "
+            f"max|d logits| {d32:.3g} of max|logits| {scale:.4g} (limit {LOGITS_TOL} x); "
+            f"bf16, {SERVE_BATCH} x {SERVE_PROMPT}: max|d logits| {d16:.3g} (mean {mean16:.3g}) of "
+            f"{float(got16.abs().max()):.4g}, greedy tokens agree at {agree} of {positions} "
+            f"positions")
+        log(f"  bf16 against float32 activations, both through wkv6, {SERVE_BATCH} x "
+            f"{SERVE_PROMPT}: max|d logits| {d_act:.3g} (mean {mean_act:.3g}), greedy tokens "
+            f"agree at {agree_act} of {positions} positions")
+        del got, want, got16, prefill_logits
+
+        # -- chunked prefill (the kernel) against token-by-token decode (the
+        #    closed form), float32 activations, request 0's first 64 tokens
+        one = prompt[:1, :64]
+        chunked = prefill(cfg32, one)
+        cache = api.init_cache(cfg32, 1, 64, device=dev)
+        steps = []
+        for i in range(one.shape[1]):
+            logits, cache = api.decode_step(params, cache, one[:, i:i + 1], i, cfg32)
+            steps.append(logits[:, 0])
+        stepped = torch.stack(steps, dim=1)
+        per_pos = (chunked - stepped).abs().amax(dim=(0, 2))
+        scale = float(stepped.abs().max())
+        check(float(per_pos.max()) <= LOGITS_TOL * scale,
+              f"chunked prefill vs decode: max|d| {float(per_pos.max())} (max {scale})")
+        log(f"  chunked prefill vs token-by-token decode, float32, {one.shape[1]} positions: "
+            f"max|d logits| "
+            f"{float(per_pos.max()):.3g} (worst position {int(per_pos.argmax())}) of "
+            f"max|logits| {scale:.4g} (limit {LOGITS_TOL} x)")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:93", "launches": launches["wkv6"],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "path": f"{cfg.name} serving, chunked prefill of {SERVE_BATCH} x {SERVE_PROMPT}",
+            "shape": shape, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "decode_device_ms_per_step": step_ms,
+            "serve_ms": serve_s * 1e3}
+
+
+def run(torch, np) -> dict:
+    from repro_torch.kernels import build
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
+
+    # -- 1. build -------------------------------------------------------------
+    build_s = build.build_all()
+    log(f"[1] built {', '.join(build.SOURCES)} with nvcc for sm_90a in {build_s:.2f} s")
+
+    dev = torch.device("cuda")
+    kernels = market_paths(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()  # the dense books leave the card before the model comes
+    kernels.append(serving(torch, dev))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

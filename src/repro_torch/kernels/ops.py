@@ -7,7 +7,7 @@ on CUDA tensors too: it exists so a run on the card can hold the kernels
 against their plain versions, and nothing on the main path passes it.
 
 Each kernel entry point (``bid_eval``, ``sparse_bid_eval_z``,
-``sparse_bid_eval_partials``, ``sparse_bid_eval_csr_z``) counts its launches
+``sparse_bid_eval_partials``, ``sparse_bid_eval_csr_z``, ``wkv6``) counts its launches
 (:func:`launch_counts`, :func:`reset_launch_counts`), so a run can show that
 its main path went through the kernels.  Kernels run on PyTorch's current
 stream and do not synchronise; outputs and scratch are allocated here.
@@ -32,6 +32,7 @@ _SIGNATURES = {
     ("sparse_bid_eval_csr", "sparse_bid_eval_csr_z"): (
         _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
     ),
+    ("wkv6", "wkv6"): (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -63,6 +64,8 @@ def _launch(lib: str, fn: str, *args) -> None:
 
 
 def _stream(device: torch.device) -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device is visible to launch a kernel on {device}")
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -203,6 +206,58 @@ def sparse_bid_eval_csr(
         chosen.data_ptr(), z.data_ptr(), _stream(dev),
     )
     return z, chosen
+
+
+def wkv6(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: torch.Tensor | None = None,
+    chunk: int = 32,
+    *,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked RWKV-6 recurrence over a batch → ``(o (B, T, H, V),
+    final state (B, H, K, V))``, both float32.
+
+    r, k ``(B, T, H, K)`` and v ``(B, T, H, V)`` in float32 or bfloat16 (one
+    dtype), w ``(B, T, H, K)`` and u ``(H, K)`` float32, state ``(B, H, K,
+    V)`` float32 or None for zeros; chunks of ``min(chunk, T)`` tokens.
+    Float-close to :func:`.ref.wkv6_chunked`, which CPU tensors run.
+    """
+    if r.device.type == "cpu" or plain:
+        return ref.wkv6_chunked(r, k, v, w, u, state, chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 runs on CPU or CUDA tensors, got {r.device}")
+    if r.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"wkv6 takes (B, T, H, K) r and (B, T, H, V) v, got "
+                         f"{tuple(r.shape)} and {tuple(v.shape)}")
+    if r.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"wkv6: r, k, v in float32 or bfloat16, got {r.dtype}")
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    dev = r.device
+    _check("r", r, r.dtype, (b, t, h, kd), dev)
+    _check("k", k, r.dtype, (b, t, h, kd), dev)
+    _check("v", v, r.dtype, (b, t, h, vd), dev)
+    _check("w", w, torch.float32, (b, t, h, kd), dev)
+    _check("u", u, torch.float32, (h, kd), dev)
+    if state is not None:
+        _check("state", state, torch.float32, (b, h, kd, vd), dev)
+    if t == 0 or chunk < 1:
+        raise ValueError(f"wkv6: T = {t} tokens in chunks of {chunk}")
+    stream = _stream(dev)
+    o = torch.empty((b, t, h, vd), dtype=torch.float32, device=dev)
+    s_out = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)
+    _launch(
+        "wkv6", "wkv6",
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if state is None else state.data_ptr(), b, t, h, kd, vd, min(chunk, t),
+        int(r.dtype == torch.bfloat16), o.data_ptr(), s_out.data_ptr(), stream,
+    )
+    return o, s_out
 
 
 def launch_counts() -> dict[str, int]:

@@ -453,3 +453,96 @@ def sparse_bid_eval_csr(
         pos = torch.where(live, sel_start + k, 0).clamp(max=nnz - 1)
         z.index_add_(0, idx[pos].long(), torch.where(live, val[pos].float(), 0.0))
     return z, chosen
+
+
+# ---------------------------------------------------------------------------
+# wkv6: the RWKV-6 linear recurrence with data-dependent decay.  No bitwise
+# contract: the kernel and the reference's jnp versions are held to float
+# tolerance.  Both functions take (T, H, ·) inputs, as the reference's do, or
+# a leading batch, (B, T, H, ·), as the port's time mix calls them.
+# ---------------------------------------------------------------------------
+
+
+def _wkv6_batched(r, k, v, w, state):
+    """Inputs with a batch axis, and whether the caller gave none."""
+    if r.ndim == 3:
+        return r[None], k[None], v[None], w[None], None if state is None else state[None], True
+    return r, k, v, w, state, False
+
+
+def wkv6(r, k, v, w, u, state=None):
+    """Sequential WKV-6 oracle, in float32::
+
+        S_t = diag(w_t) S_{t-1} + k_tᵀ v_t
+        o_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)
+
+    r, k, w ``(B, T, H, K)``, v ``(B, T, H, V)`` (B optional), u ``(H, K)``,
+    state ``(B, H, K, V)`` or None for zeros → (o ``(B, T, H, V)``, final
+    state ``(B, H, K, V)``).
+    """
+    r, k, v, w, state, unbatched = _wkv6_batched(r, k, v, w, state)
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    rf, kf, vf, wf, uf = (x.float() for x in (r, k, v, w, u))
+    s = (torch.zeros((b, h, kd, vd), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    outs = []
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, i], s + uf[:, :, None] * kv))
+        s = wf[:, i, :, :, None] * s + kv
+    o = torch.stack(outs, dim=1)
+    return (o[0], s[0]) if unbatched else (o, s)
+
+
+def wkv6_chunked(r, k, v, w, u, state=None, chunk: int = 32):
+    """Chunked WKV-6 in float32, the log-space algebra of the reference's
+    ``wkv6_chunked`` and of the Pallas kernel.  Within a chunk of L tokens,
+    with cs the inclusive cumsum of log w and cs_ex = cs − log w::
+
+        o_t    = (r_t ⊙ e^{cs_ex[t]}) · S
+                 + Σ_{s<t} [Σ_k r_t[k] k_s[k] e^{cs_ex[t,k] − cs[s,k]}] v_s
+                 + (r_t ⊙ u · k_t) v_t
+        S_next = diag(e^{cs[L-1]}) S + (k ⊙ e^{cs[L-1] − cs})ᵀ v
+
+    The ragged last chunk is padded with w = 1 and r = k = v = 0.  Shapes as
+    :func:`wkv6`.
+    """
+    r, k, v, w, state, unbatched = _wkv6_batched(r, k, v, w, state)
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    L = min(chunk, t)
+    tp = -(-t // L) * L
+    dev = r.device
+
+    def chunks(x, fill):
+        x = x.float()
+        if tp > t:
+            x = torch.cat([x, x.new_full((b, tp - t) + x.shape[2:], fill)], dim=1)
+        return x.reshape(b, tp // L, L, h, x.shape[-1])
+
+    rf, kf, vf, wf = chunks(r, 0.0), chunks(k, 0.0), chunks(v, 0.0), chunks(w, 1.0)
+    uf = u.float()
+    s = (torch.zeros((b, h, kd, vd), dtype=torch.float32, device=dev)
+         if state is None else state.float())
+    tri = torch.tril(torch.ones((L, L), dtype=torch.float32, device=dev), diagonal=-1)
+    eye = torch.eye(L, dtype=torch.float32, device=dev)
+    outs = []
+    for c in range(tp // L):
+        rc, kc, vc, wc = rf[:, c], kf[:, c], vf[:, c], wf[:, c]  # (B, L, H, ·)
+        lw = torch.log(torch.clamp(wc, min=1e-38))
+        cs = torch.cumsum(lw, dim=1)
+        cs_ex = cs - lw
+        o_state = torch.einsum("blhk,bhkv->blhv", rc * torch.exp(cs_ex), s)
+        dif = torch.clamp(cs_ex[:, :, None] - cs[:, None, :], max=0.0)  # (B, L, L, H, K)
+        dec = torch.exp(dif) * tri[:, :, None, None]
+        scores = torch.einsum("blhk,bmhk,blmhk->bhlm", rc, kc, dec)
+        diag = torch.einsum("blhk,hk,blhk->bhl", rc, uf, kc)
+        scores = scores + eye * diag[..., None]
+        o_intra = torch.einsum("bhlm,bmhv->blhv", scores, vc)
+        total = cs[:, -1]  # (B, H, K)
+        k_dec = kc * torch.exp(total[:, None] - cs)
+        s = torch.exp(total)[..., None] * s + torch.einsum("blhk,blhv->bhkv", k_dec, vc)
+        outs.append(o_state + o_intra)
+    o = torch.cat(outs, dim=1)[:, :t]
+    return (o[0], s[0]) if unbatched else (o, s)

@@ -1,0 +1,77 @@
+"""Parameter declarations and their initialisation (the port of
+``repro.models.params``).
+
+Models declare parameters as trees (nested dicts and lists) of
+:class:`ParamDecl`: a shape, a logical axis name per dimension and an
+initialiser.  :func:`init_params` materialises a tree of the same structure
+holding tensors, with the reference's init kinds and fan-in scales, drawn
+from a ``torch.Generator`` on the target device (its numbers differ from
+``jax.random``'s; :func:`.convert.params_from_reference` gives the port the
+reference's own weights).  The sharding rules and the dry-run's abstract
+parameters wait for the multi-GPU slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from ..core.types import as_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDecl:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # logical axis name per dim (None = never shard)
+    init: str = "normal"  # "normal" | "zeros" | "ones" | "embed" | "uniform_pm"
+    scale: float | None = None  # stddev override; default fan-in
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+
+def map_decls(fn: Callable[[ParamDecl], Any], decls: Any) -> Any:
+    """``decls`` with every :class:`ParamDecl` replaced by ``fn(decl)``; dict
+    keys are visited in sorted order, as ``jax.tree_util`` flattens them."""
+    if isinstance(decls, ParamDecl):
+        return fn(decls)
+    if isinstance(decls, dict):
+        return {key: map_decls(fn, decls[key]) for key in sorted(decls)}
+    if isinstance(decls, (list, tuple)):
+        return type(decls)(map_decls(fn, d) for d in decls)
+    raise TypeError(f"not a declaration tree: {type(decls)}")
+
+
+def _init_leaf(gen: torch.Generator, d: ParamDecl, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "uniform_pm":  # uniform in [-scale, scale]
+        s = d.scale if d.scale is not None else 1.0
+        u = torch.rand(d.shape, generator=gen, device=device)
+        return u.mul_(2 * s).sub_(s).to(dtype)
+    if d.init == "embed":
+        s = d.scale if d.scale is not None else 1.0
+    else:  # fan-in scaled normal
+        fan_in = d.shape[0] if len(d.shape) == 1 else math.prod(d.shape[:-1])
+        s = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    return torch.randn(d.shape, generator=gen, device=device).mul_(s).to(dtype)
+
+
+def init_params(generator: torch.Generator, decls: Any, dtype: torch.dtype = torch.float32,
+                device: str | torch.device = "cuda") -> Any:
+    """Materialise ``decls`` on ``device`` (the card unless the caller asks
+    for the CPU); ``generator`` lives on the same device."""
+    dev = as_device(device)
+    return map_decls(lambda d: _init_leaf(generator, d, dtype, dev), decls)
+
+
+def count_params(decls: Any) -> int:
+    sizes: list[int] = []
+    map_decls(lambda d: sizes.append(math.prod(d.shape)), decls)
+    return sum(sizes)

@@ -18,6 +18,8 @@ _PROBE = """
 import json, sys
 import repro_torch, repro_torch.core, repro_torch.core.provisioner
 import repro_torch.kernels.ops, repro_torch.kernels.build
+import repro_torch.models, repro_torch.models.convert, repro_torch.configs
+import repro_torch.serve.decode, repro_torch.launch.serve
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps(bad))
@@ -42,3 +44,22 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.random_market(10, 4)
     assert pt.make_fleet_economy(seed=0, device="cpu").device.type == "cpu"
+
+
+def test_model_entry_points_without_a_gpu_raise(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import get_api
+    from repro_torch.models.params import init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("rwkv6-7b")
+    api = get_api(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(torch.Generator(), api.decls(cfg))  # the default device is the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "rwkv6-7b", "--smoke"])
+    params = init_params(torch.Generator(), api.decls(cfg), device="cpu")
+    assert params["embed"].device.type == "cpu"

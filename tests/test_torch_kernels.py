@@ -186,7 +186,7 @@ def test_cpu_wrappers_do_not_count_launches():
     ops.sparse_bid_eval(*args, 5, 2)
     assert ops.launch_counts() == {
         "bid_eval": 0, "sparse_bid_eval_z": 0, "sparse_bid_eval_partials": 0,
-        "sparse_bid_eval_csr_z": 0,
+        "sparse_bid_eval_csr_z": 0, "wkv6": 0,
     }
 
 
