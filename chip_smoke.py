@@ -23,8 +23,13 @@ hand it in the served prefill).  Phase [4] also provisions the quickstart
 and elastic-training books to device grants through ``bid_eval`` and
 through its plain version; phase [5] also runs the whole model with
 ``wkv6`` forced to its plain version, and the chunked prefill against
-token-by-token decode.  Any failed check raises; nothing is caught and
-carried on.
+token-by-token decode.  Phase [2] also holds ``sparse_bid_eval_partials``
+against its plain version bit for bit at edge books across every fold
+regime (PARTIALS_EDGE_M rows a block, padded and not, 8 and 1 blocks, R in
+PARTIALS_EDGE_R, repeated pools, -0.0, masked and priced-out users), and
+phase [5] holds ``wkv6`` within WKV6_TOL at edge shapes (WKV6_EDGE_T
+tokens, float32 and bf16, with and without an initial state, w down to
+1e-30).  Any failed check raises; nothing is caught and carried on.
 
 Output: progress lines, then the card's ``name, power.limit``, then one JSON
 line ``{"kernels": [...]}`` with one entry per kernel entry point, then the
@@ -226,6 +231,14 @@ def dense_round_book(torch, dev, u, b, r, seed):
             torch.randn((r,), generator=g, device=dev).abs())
 
 
+def same_bits(torch, a, b) -> bool:
+    """Bit for bit: NaN where the other is NaN, every other float32 with
+    the same bits (so -0.0 and +0.0 differ)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bool(torch.equal(
+        torch.where(nan, 0, a.view(torch.int32)), torch.where(nan, 0, b.view(torch.int32))))
+
+
 def z_tolerance(torch, sel_idx_flat, sel_val_flat, r):
     """Per-pool bound on the atomics' reordering error: 1e-5 of the summed
     |contributions| (float32 eps is 6e-8; a pool sums up to 10^5 terms)."""
@@ -256,7 +269,7 @@ def check_padded_kernel(torch, ops, ref, book, label):
     check(torch.equal(chosen, chosen_ref), f"{label}: z-mode chosen differs")
     check(torch.equal(chosen_p, chosen_ref), f"{label}: partials-mode chosen differs")
     check(bool(((z - z_ref).abs() <= tol).all()), f"{label}: z off by {z_err}")
-    check(torch.equal(parts, parts_ref), f"{label}: partials off by {parts_err}")
+    check(same_bits(torch, parts, parts_ref), f"{label}: partials off by {parts_err}")
     log(f"  sparse_bid_eval {label}: chosen exact, partials max|err| {parts_err} "
         f"(bit-identical), z max|err| {z_err:.3g} (max|z| {float(z_ref.abs().max()):.6g})")
     return z_err, parts_err
@@ -293,9 +306,67 @@ def check_dense_kernel(torch, ops, ref, book, label) -> float:
     return z_err
 
 
-def time_at_check_shape(torch, kernel, fn, bound_) -> None:
+def time_at_check_shape(torch, kernel, fn, bound_) -> float:
     ms = graph_ms(torch, fn)
     log(f"    {kernel}: {ms:.4f} ms, bound {bound_[0]:.4f} ms ({bound_[1]})")
+    return ms
+
+
+PARTIALS_EDGE_M = (1, 15, 16, 20, 24, 31, 32, 33, 1_024, 1_025, 8_087)
+PARTIALS_EDGE_R = (1, 24, 128, 129, 1_000)
+
+
+def adversarial_book(torch, np, dev, u, r, vector_pi, seed, all_out=False, b=4, k=3):
+    """A K-padded book (K >= 3) with repeated pools inside bundles, -0.0
+    and +0.0 values, wholly masked users and users priced out."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, r, (u, b, k)).astype(np.int32)
+    dup = rng.random((u, b)) < 0.3
+    idx[dup, 1] = idx[dup, 0]
+    dup = rng.random((u, b)) < 0.1
+    idx[dup, 2] = idx[dup, 0]
+    val = (rng.uniform(-2, 4, (u, b, k)) * 10.0 ** rng.integers(-3, 4, (u, b, k))).astype(np.float32)
+    val[rng.random((u, b, k)) < 0.05] = -0.0
+    val[rng.random((u, b, k)) < 0.05] = 0.0
+    mask = rng.random((u, b)) < 0.8
+    mask[rng.random(u) < 0.1] = False
+    pi = rng.uniform(-5, 40, (u, b) if vector_pi else u).astype(np.float32)
+    pi[rng.random(u) < 0.1] = -1e30
+    if all_out:
+        pi[:] = -np.inf
+    prices = rng.random(r).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (idx, val, mask, pi, prices)]
+
+
+def check_partials_edges(torch, np, ops, ref, dev) -> int:
+    """Partials bit-identical and chosen exact across the fold regimes: m
+    rows a block in PARTIALS_EDGE_M with and without padded users, 8 and 1
+    blocks, R in PARTIALS_EDGE_R, scalar and vector pi, adversarial books;
+    then books where every user is out, and two past the kernel's shared
+    memory → the number of books checked."""
+    cases = []
+    for m in PARTIALS_EDGE_M:
+        for nb, pad in ((8, 0), (8, 3), (1, 0)):
+            for r in PARTIALS_EDGE_R:
+                cases += [(nb * m - pad, nb, r, vector_pi, False) for vector_pi in (False, True)]
+    cases += [(8 * m - 3, 8, 24, vector_pi, True) for m in (20, 8_087) for vector_pi in (False, True)]
+    # past the kernel's shared memory: B*K = 1,024 pairs a user read from
+    # device memory, and R = 60,000 window sums kept in the level buffer
+    cases += [(2_000, 8, 24, True, False, 4, 256), (2_000, 8, 60_000, False, False, 2, 3)]
+    for seed, (u, nb, r, vector_pi, all_out, *bk) in enumerate(cases):
+        book = adversarial_book(torch, np, dev, u, r, vector_pi, seed, all_out, *bk)
+        parts, chosen = ops.sparse_bid_eval(*book, r, nb)
+        torch.cuda.synchronize()
+        parts_ref, chosen_ref = ref.sparse_bid_eval(*book, r, nb)
+        label = (f"partials U={u} blocks={nb} R={r} {'vector' if vector_pi else 'scalar'} pi"
+                 f"{', every user out' if all_out else ''}")
+        check(torch.equal(chosen, chosen_ref), f"{label}: chosen differs")
+        check(same_bits(torch, parts, parts_ref), f"{label}: partials differ")
+    log(f"  sparse_bid_eval_partials at {len(cases)} edge books (m rows a block in "
+        f"{PARTIALS_EDGE_M}, padded and not, 8 and 1 blocks, R in {PARTIALS_EDGE_R}, scalar "
+        f"and vector pi, repeated pools, -0.0, masked and priced-out users; every user out; "
+        f"K = 256 and R = 60,000): chosen exact, partials bit-identical")
+    return len(cases)
 
 
 def recording(fn, last: dict):
@@ -317,6 +388,7 @@ def market_paths(torch, np, dev) -> list[dict]:
 
     # -- 2. kernels against their plain versions ----------------------------
     log("[2] kernels against their plain versions")
+    synthetic = {}  # off the main path: the synthetic planet books' partials times
     for vector_pi in (False, True):
         book = synthetic_book(torch, np, dev, 100_000, 4, 8, 1_000, vector_pi, seed=1)
         label = f"100000x4x8 R=1000 {'vector' if vector_pi else 'scalar'} pi"
@@ -324,9 +396,11 @@ def market_paths(torch, np, dev) -> list[dict]:
         time_at_check_shape(torch, "sparse_bid_eval z mode",
                             lambda: ops.sparse_bid_eval(*book, 1_000),
                             padded_bound(*book, out_bytes=4 * 1_000))
-        time_at_check_shape(torch, "sparse_bid_eval partials",
-                            lambda: ops.sparse_bid_eval(*book, 1_000, 8),
-                            padded_bound(*book, out_bytes=4 * 8 * 1_000))
+        s_bound = padded_bound(*book, out_bytes=4 * 8 * 1_000)
+        synthetic[label] = {"ms": time_at_check_shape(
+            torch, "sparse_bid_eval partials", lambda: ops.sparse_bid_eval(*book, 1_000, 8),
+            s_bound), "bound_ms": s_bound[0]}
+    check_partials_edges(torch, np, ops, ref, dev)
     round_book = dense_round_book(torch, dev, 100_000, 4, 1_000, seed=1)
     check_dense_kernel(torch, ops, ref, round_book, "bid_eval_round 100000x4 R=1000")
     bundles, mask, pi, prices = round_book
@@ -557,7 +631,8 @@ def market_paths(torch, np, dev) -> list[dict]:
          "launches": path_launches["economy"]["sparse_bid_eval_partials"],
          "max_abs_err": parts_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
          "bound_by": b_by, "path": "fleet economy, 6 epochs",
-         "shape": f"U={u} B={b} K={k} R={r} vector pi, num_blocks=8"},
+         "shape": f"U={u} B={b} K={k} R={r} vector pi, num_blocks=8",
+         "synthetic_planet_books": synthetic},
         {"name": "sparse_bid_eval_z", **padded_src,
          "launches": path_launches["padded"]["sparse_bid_eval_z"],
          "max_abs_err": z_err, "ms": z_ms, "plain_ms": zp_ms, "bound_ms": zb_ms,
@@ -631,7 +706,7 @@ def wkv6_bound(r, k, v, w, u, state, chunk) -> tuple[float, str, dict]:
     return parts[by], "bytes" if by == "bytes" else "operations", parts
 
 
-def check_wkv6(torch, ops, args, label) -> float:
+def check_wkv6(torch, ops, args, label, quiet=False) -> float:
     """The kernel against its plain version on one call's inputs → max|o err|."""
     o, s = ops.wkv6(*args)
     torch.cuda.synchronize()
@@ -642,9 +717,42 @@ def check_wkv6(torch, ops, args, label) -> float:
         scale = float(want.abs().max())
         check(bool(torch.isfinite(got).all()) and errs[name] <= WKV6_TOL * scale,
               f"wkv6 {label}: {name} off by {errs[name]} (max|{name}| {scale})")
-    log(f"  wkv6 {label}: max|o err| {errs['o']:.3g} (max|o| {float(o_ref.abs().max()):.4g}), "
-        f"max|state err| {errs['state']:.3g} (max|state| {float(s_ref.abs().max()):.4g})")
+    if not quiet:
+        log(f"  wkv6 {label}: max|o err| {errs['o']:.3g} (max|o| {float(o_ref.abs().max()):.4g}), "
+            f"max|state err| {errs['state']:.3g} (max|state| {float(s_ref.abs().max()):.4g})")
     return errs["o"]
+
+
+WKV6_EDGE_T = (1, 31, 32, 33, 500)
+WKV6_EDGE_KV = ((64, 64), (16, 96), (12, 20))  # served; padded K and a ragged V block; unaligned rows
+
+
+def check_wkv6_edges(torch, ops, dev) -> float:
+    """wkv6 within WKV6_TOL at T in WKV6_EDGE_T, float32 and bf16 r/k/v,
+    with and without an initial state, strong decay (w down to 1e-30), B = 2
+    and H = 4 at each (K, V) of WKV6_EDGE_KV → the largest max|o err|."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    n = 0
+    for kd, vd in WKV6_EDGE_KV:
+        for t in WKV6_EDGE_T:
+            for dtype in (torch.float32, torch.bfloat16):
+                for with_state in (False, True):
+                    def rand(*shape, scale=1.0):
+                        return torch.randn(shape, generator=g, device=dev) * scale
+
+                    w = torch.exp(-torch.exp(rand(2, t, 4, kd)))
+                    w[..., : kd // 4] = 1e-30  # strong decay: log w = -69
+                    args = (rand(2, t, 4, kd).to(dtype), rand(2, t, 4, kd, scale=0.5).to(dtype),
+                            rand(2, t, 4, vd).to(dtype), w, rand(4, kd, scale=0.3),
+                            rand(2, 4, kd, vd, scale=0.2) if with_state else None, 32)
+                    label = f"T={t} K={kd} V={vd} {dtype} {'with' if with_state else 'no'} state"
+                    worst = max(worst, check_wkv6(torch, ops, args, label, quiet=True))
+                    n += 1
+    log(f"  wkv6 at {n} edge shapes (T in {WKV6_EDGE_T}, (K, V) in {WKV6_EDGE_KV}, float32 and "
+        f"bf16, with and without s0, w down to 1e-30): within {WKV6_TOL} x max|plain|, "
+        f"max|o err| {worst:.3g}")
+    return worst
 
 
 def serving(torch, dev) -> dict:
@@ -743,6 +851,7 @@ def serving(torch, dev) -> dict:
     _, s_first = ops.wkv6(*first, plain=True)
     ragged = tuple(a[:, :37].contiguous() for a in first[:4]) + (first[4], s_first, first[6])
     err = max(err, check_wkv6(torch, ops, ragged, "T=37 from a non-zero state"))
+    check_wkv6_edges(torch, ops, dev)
     k_ms = graph_ms(torch, lambda: ops.wkv6(*first))
     p_ms = graph_ms(torch, lambda: ops.wkv6(*first, plain=True), DENSE_PLAIN_CALLS)
     b_ms, b_by, parts = wkv6_bound(*first)

@@ -14,15 +14,14 @@
 //                  adds its tile to z with one global atomicAdd per pool.  The
 //                  order of those float additions changes from run to run, so
 //                  z is float-close only, never bit-reproducible.
-//   partials mode  (num_blocks, R): the deterministic settlement form.  The
-//                  selection pass writes each user's chosen (idx, val) row;
-//                  fold kernels then reduce the user rows of each contiguous
-//                  block exactly as XLA's CPU backend reduces them for the
-//                  JAX reference (windows of 32 folded left to right, level
-//                  by level, or one 8-lane vectorized fold for 16..32 fused
-//                  rows; see repro_torch/kernels/ref.py).  One thread owns one
-//                  (block, window, pool) sum.  No float atomics: the result is
-//                  bit-identical to the plain PyTorch version, run after run.
+//   partials mode  (num_blocks, R): the deterministic settlement form, the
+//                  block sums of the users' demand rows reduced exactly as
+//                  XLA's CPU backend reduces them for the JAX reference
+//                  (windows of 32 rows folded left to right, level by level,
+//                  or one 8-lane vectorized fold for 16..32 fused rows; see
+//                  repro_torch/kernels/ref.py).  No float atomics: the result
+//                  is bit-identical to the plain PyTorch version, run after
+//                  run.
 //
 // Float contract: compiled with --fmad=false so no a*b+c is contracted
 // implicitly.  Where XLA contracts (the K-term cost fold, and pi - v*p when
@@ -32,11 +31,32 @@
 // B = 8, K = 3, R = 24, vector pi) one round reads idx+val 12.4 MB, pi
 // 2.1 MB and mask 0.5 MB and writes chosen 0.26 MB -- about 15.3 MB, or
 // ~4.6 us at 3.35 TB/s, so an 842-round cold clock is bounded below by
-// ~3.9 ms.  This first version does nothing to reach that bound: each thread
-// reads its user's B*K pairs with plain loads (uncoalesced across the warp),
-// and the block fold runs one thread per (block, pool) column at the last
-// level, serial over up to 32 values.  Left for later: cp.async/TMA staging
-// of the idx/val tiles into shared memory, and a parallel deterministic fold.
+// ~3.9 ms.
+//
+// Partials design: one launch reads the book once and keeps the chosen rows
+// on the SM; a second, small one folds the later levels.  A level-1 CTA owns
+// up to 8 consecutive level-1 windows of one user block (32 rows each, after
+// XLA's front padding lo), so its users are one contiguous span of the book:
+//   1. it stages the span's idx, val, pi and mask into shared memory with
+//      cp.async, all copies in flight at once and coalesced across the CTA,
+//      each user's idx/val/pi row at an odd word stride so that the
+//      selection's per-user reads hit distinct banks;
+//   2. one thread per row selects from shared memory (the same choose()
+//      arithmetic as z mode), writes chosen, and keeps its chosen terms in
+//      shared memory, merged so that the first term of each pool carries the
+//      k-order fold from +0 of all its terms: that is the row value x(i)[r];
+//   3. a warp is a window: it walks the window's 32 rows in order, and for
+//      each row its lanes add the row's live terms into a shared (R,)
+//      accumulator at once (a row's live terms have distinct pools).  Rows
+//      that do not touch r would add +0.0, which leaves a sum that started at
+//      +0 unchanged (in round-to-nearest a running sum from +0 is never
+//      -0.0), so skipping them keeps the left fold bit-identical while the
+//      work is 32*K a window, not 32*K*R, and 32 steps deep whatever R is;
+//   4. the second launch gives each (block, 32 pools) a CTA that folds the
+//      later levels, left folds of <= 32 values in fixed order.
+// Blocks of m <= 32 rows take one CTA each and one launch: the same staged
+// selection, then one thread per pool folds the block whole (vectorized or
+// left fold).  No float atomics and no inter-CTA counters.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,42 +65,49 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWindow = 32;               // XLA's tree-reduction window
-constexpr int kSmemFloats = 12 * 1024;    // 48 KB of dynamic shared memory
+constexpr int kSmemFloats = 12 * 1024;    // z mode: 48 KB of dynamic shared memory
+constexpr int kMaxWindowsPerCta = 8;
+constexpr int kRegK = 4;                  // partials: terms a bundle merged in registers
+constexpr int kRegPools = 4 * 32;         // partials: pools a lane can sum in registers
+constexpr int kOneHotMaxR = 128;          // ref.ONEHOT_ROWS_MAX_R
+constexpr size_t kSmemBudget = 110 * 1024;  // partials: two CTAs an SM
+constexpr size_t kSmemMax = 200 * 1024;
 
-__device__ __forceinline__ float bundle_cost(const int* __restrict__ ib,
-                                             const float* __restrict__ vb,
-                                             const float* p, int K) {
+__host__ __device__ inline int odd(int n) { return n | 1; }
+
+__device__ __forceinline__ float bundle_cost(const int* ib, const float* vb, const float* p,
+                                             int K) {
   float acc = __fmul_rn(vb[0], p[ib[0]]);
+#pragma unroll 4
   for (int k = 1; k < K; ++k) acc = __fmaf_rn(vb[k], p[ib[k]], acc);
   return acc;
 }
 
-// First extremum over the valid bundles; all-invalid users end up out.
-__device__ __forceinline__ void choose(const int* __restrict__ idx,
-                                       const float* __restrict__ val,
-                                       const uint8_t* __restrict__ mask,
-                                       const float* __restrict__ pi, int pi_vector,
-                                       const float* p, int u, int B, int K,
-                                       int& bhat, bool& active) {
-  const size_t row = static_cast<size_t>(u) * B;
+// First extremum over the valid bundles of one user; all-invalid users end
+// up out.  ib/vb: the user's B*K pairs, mb: its B mask bytes, pib: its pi
+// (one value, or B with vector pi).
+__device__ __forceinline__ void choose(const int* ib, const float* vb, const uint8_t* mb,
+                                       const float* pib, int pi_vector, const float* p, int B,
+                                       int K, int& bhat, bool& active) {
   bhat = 0;
   if (!pi_vector) {
     float best = 0.f;
+#pragma unroll 4
     for (int b = 0; b < B; ++b) {
-      const size_t off = (row + b) * K;
-      const float c = mask[row + b] ? bundle_cost(idx + off, val + off, p, K)
-                                    : __int_as_float(0x7f800000);
+      const float c = mb[b] ? bundle_cost(ib + b * K, vb + b * K, p, K)
+                            : __int_as_float(0x7f800000);
       if (b == 0 || c < best) { best = c; bhat = b; }
     }
-    active = best <= pi[u];
+    active = best <= pib[0];
   } else {
     float best = 0.f;
+#pragma unroll 4
     for (int b = 0; b < B; ++b) {
-      const size_t off = (row + b) * K;
+      const int off = b * K;
       float s = -__int_as_float(0x7f800000);
-      if (mask[row + b]) {
-        s = K == 1 ? __fmaf_rn(-val[off], p[idx[off]], pi[row + b])
-                   : __fsub_rn(pi[row + b], bundle_cost(idx + off, val + off, p, K));
+      if (mb[b]) {
+        s = K == 1 ? __fmaf_rn(-vb[off], p[ib[off]], pib[b])
+                   : __fsub_rn(pib[b], bundle_cost(ib + off, vb + off, p, K));
       }
       if (b == 0 || s > best) { best = s; bhat = b; }
     }
@@ -88,80 +115,129 @@ __device__ __forceinline__ void choose(const int* __restrict__ idx,
   }
 }
 
-// One thread per user.  Writes chosen; with sel_idx the chosen (idx, val)
-// row of every user u < U_pad (zeros on padding rows); with z the chosen
-// bundles scattered into z.
-__global__ void select_kernel(const int* __restrict__ idx, const float* __restrict__ val,
-                              const uint8_t* __restrict__ mask, const float* __restrict__ pi,
-                              int pi_vector, const float* __restrict__ prices, int U, int U_pad,
-                              int B, int K, int R, int stage_prices, int stage_z,
-                              int* __restrict__ chosen, int* __restrict__ sel_idx,
-                              float* __restrict__ sel_val, float* __restrict__ z) {
+// ---------------------------------------------------------------------------
+// z mode
+// ---------------------------------------------------------------------------
+
+// One thread per user: writes chosen and scatters the chosen bundle into z.
+__global__ void select_z_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                                const uint8_t* __restrict__ mask, const float* __restrict__ pi,
+                                int pi_vector, const float* __restrict__ prices, int U, int B,
+                                int K, int R, int stage, int* __restrict__ chosen,
+                                float* __restrict__ z) {
   extern __shared__ float smem[];
   float* s_prices = smem;
-  float* s_z = smem + (stage_prices ? R : 0);
-  if (stage_prices)
-    for (int r = threadIdx.x; r < R; r += blockDim.x) s_prices[r] = prices[r];
-  if (z != nullptr && stage_z)
-    for (int r = threadIdx.x; r < R; r += blockDim.x) s_z[r] = 0.f;
+  float* s_z = smem + (stage ? R : 0);
+  if (stage)
+    for (int r = threadIdx.x; r < R; r += blockDim.x) { s_prices[r] = prices[r]; s_z[r] = 0.f; }
   __syncthreads();
-  const float* p = stage_prices ? s_prices : prices;
+  const float* p = stage ? s_prices : prices;
 
   const int u = blockIdx.x * blockDim.x + threadIdx.x;
   if (u < U) {
+    const size_t row = static_cast<size_t>(u) * B;
     int bhat;
     bool active;
-    choose(idx, val, mask, pi, pi_vector, p, u, B, K, bhat, active);
+    choose(idx + row * K, val + row * K, mask + row, pi_vector ? pi + row : pi + u, pi_vector,
+           p, B, K, bhat, active);
     chosen[u] = active ? bhat : -1;
-    const size_t off = (static_cast<size_t>(u) * B + bhat) * K;
-    const float on = active ? 1.f : 0.f;
-    for (int k = 0; k < K; ++k) {
-      const int i = idx[off + k];
-      const float v = __fmul_rn(val[off + k], on);
-      if (sel_idx != nullptr) {
-        sel_idx[static_cast<size_t>(u) * K + k] = i;
-        sel_val[static_cast<size_t>(u) * K + k] = v;
-      }
-      if (z != nullptr && active) atomicAdd(stage_z ? &s_z[i] : &z[i], v);
-    }
-  } else if (u < U_pad && sel_idx != nullptr) {
-    for (int k = 0; k < K; ++k) {
-      sel_idx[static_cast<size_t>(u) * K + k] = 0;
-      sel_val[static_cast<size_t>(u) * K + k] = 0.f;
+    if (active) {
+      const size_t off = (row + bhat) * K;
+      for (int k = 0; k < K; ++k) atomicAdd(stage ? &s_z[idx[off + k]] : &z[idx[off + k]],
+                                            val[off + k]);
     }
   }
-  if (z != nullptr && stage_z) {
+  if (stage) {
     __syncthreads();
     for (int r = threadIdx.x; r < R; r += blockDim.x)
       if (s_z[r] != 0.f) atomicAdd(&z[r], s_z[r]);
   }
 }
 
-// x(i): user row base+i of the selected bundles at pool r, terms added in k order
-struct RowValue {
-  const int* sel_idx;
-  const float* sel_val;
-  int K, r;
-  size_t base;
+// ---------------------------------------------------------------------------
+// partials mode
+// ---------------------------------------------------------------------------
+
+// Shared-memory carve-up of one level-1 CTA, in 4-byte words.  With
+// stage_book = 0 the book is read from global memory (a pathological B*K);
+// with acc_smem = 0 the window sums accumulate in the level buffer itself (a
+// pathological R).
+struct Layout {
+  int stage_book, stage_prices, acc_smem;
+  int ik, pv, kp;  // row strides: idx/val words, pi words, chosen terms
+  int idx, val, pi, mask, prices, sel_r, sel_x, acc, words;
+};
+
+Layout make_layout(int rows, int windows, int B, int K, int R, int pi_vector, int stage_book,
+                   int acc_smem) {
+  Layout L{};
+  L.stage_book = stage_book;
+  L.stage_prices = R <= 4096;
+  L.acc_smem = acc_smem;
+  L.ik = odd(B * K);
+  L.pv = pi_vector ? odd(B) : 1;
+  L.kp = odd(K);
+  int at = 0;
+  auto take = [&at](int words) { const int here = at; at += (words + 3) / 4 * 4; return here; };
+  const int s = stage_book ? rows : 0;
+  L.idx = take(s * L.ik);
+  L.val = take(s * L.ik);
+  L.pi = take(s * L.pv);
+  L.mask = take(stage_book ? (rows * B + 3) / 4 + 1 : 0);  // the span's bytes as whole words
+  L.prices = take(L.stage_prices ? R : 0);
+  L.sel_r = take(rows * L.kp);
+  L.sel_x = take(rows * L.kp);
+  L.acc = take(acc_smem && R > kRegPools ? windows * R : 0);
+  L.words = at;
+  return L;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+// Starts copying rows x len consecutive 4-byte elements of g into s, row q
+// at s + q*stride (an odd stride: consecutive rows start on different
+// banks).  Consecutive threads copy consecutive elements, every copy in
+// flight at once; cp.async.wait_all completes them.
+template <typename T>
+__device__ void stage(const T* __restrict__ g, int rows, int len, int stride, T* s) {
+  const int n = rows * len, nt = blockDim.x;
+  const int drow = nt / len, dcol = nt % len;
+  int row = threadIdx.x / len, col = threadIdx.x % len;
+  for (int e = threadIdx.x; e < n; e += nt) {
+    cp_async4(s + row * stride + col, g + e);
+    row += drow;
+    col += dcol;
+    if (col >= len) { col -= len; ++row; }
+  }
+}
+
+// x(i): the value of block row i at pool r, from its merged chosen terms
+// (0.f where the row does not touch r)
+struct MergedRow {
+  const int* sel_r;
+  const float* sel_x;
+  int kp, K, r;
   __device__ float operator()(int i) const {
-    const size_t off = (base + i) * K;
-    float acc = 0.f;
     for (int k = 0; k < K; ++k)
-      acc = __fadd_rn(acc, sel_idx[off + k] == r ? sel_val[off + k] : 0.f);
-    return acc;
+      if (sel_r[i * kp + k] == r) return sel_x[i * kp + k];
+    return 0.f;
   }
 };
 
-// x(i): entry i of one (block, pool) column of a (nb, n, R) level buffer
+// x(i): entry i of one (block, pool) column of a level buffer
 struct BufValue {
   const float* col;
   int R;
-  __device__ float operator()(int i) const { return col[static_cast<size_t>(i) * R]; }
+  __device__ float operator()(int i) const { return __ldcg(col + static_cast<size_t>(i) * R); }
 };
 
 template <class X>
 __device__ float fold_window(const X& x, int n, int w, int lo) {
   float acc = 0.f;
+#pragma unroll
   for (int j = 0; j < kWindow; ++j) {
     const int i = w * kWindow + j - lo;
     acc = __fadd_rn(acc, (i >= 0 && i < n) ? x(i) : 0.f);
@@ -203,43 +279,193 @@ __device__ float fold_whole(const X& x, int n, bool vectorized) {
   return acc;
 }
 
-// Level 1: out[b][w][r] folds rows [b*n, (b+1)*n) of the selected bundles.
-__global__ void fold_rows_kernel(const int* __restrict__ sel_idx, const float* __restrict__ sel_val,
-                                 int K, int R, int nb, int n, int lo, int n_out, int whole,
-                                 int vectorized, float* __restrict__ out) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<size_t>(nb) * n_out * R) return;
-  const int r = static_cast<int>(t % R);
-  const int w = static_cast<int>((t / R) % n_out);
-  const int b = static_cast<int>(t / (static_cast<size_t>(R) * n_out));
-  const RowValue x{sel_idx, sel_val, K, r, static_cast<size_t>(b) * n};
-  out[t] = whole ? fold_whole(x, n, vectorized != 0) : fold_window(x, n, w, lo);
+// Level 1.  grid (ceil(n1 / windows), num_blocks), 32 * windows threads.
+// Block j holds rows [j*m, (j+1)*m) of the zero-padded users; its level 1
+// has n1 windows with lo rows of front padding, written to buf (nb, n1, R).
+// whole: m <= 32, one CTA a block folds it whole into partials.  KT > 0
+// compiles the kernel for K = KT (the loops over a bundle's terms unroll).
+template <int KT>
+__global__ void __launch_bounds__(kThreads)
+partials_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                const uint8_t* __restrict__ mask, const float* __restrict__ pi, int pi_vector,
+                const float* __restrict__ prices, int U, int B, int K_, int R, int m, int n1,
+                int lo, int windows, int whole, int vectorized, Layout L,
+                int* __restrict__ chosen, float* __restrict__ buf, float* __restrict__ partials) {
+  extern __shared__ __align__(16) float smem[];
+  const int K = KT > 0 ? KT : K_;
+  int* s_idx = reinterpret_cast<int*>(smem) + L.idx;
+  float* s_val = smem + L.val;
+  float* s_pi = smem + L.pi;
+  float* s_prices = smem + L.prices;
+  int* s_sel_r = reinterpret_cast<int*>(smem) + L.sel_r;
+  float* s_sel_x = smem + L.sel_x;
+  float* s_acc = smem + L.acc;
+
+  const int j = blockIdx.y;
+  const int w0 = blockIdx.x * windows;
+  const int nw = min(windows, n1 - w0);
+  const int row0 = max(0, w0 * kWindow - lo);
+  const int row1 = min(m, (w0 + nw) * kWindow - lo);
+  const int u0 = j * m + row0;
+  const int nu = max(0, min(j * m + row1, U) - u0);  // rows past U are zero padding
+  const int BK = B * K, pi_len = pi_vector ? B : 1;
+
+  // 1. stage the CTA's span of the book: idx, val and pi at odd row strides,
+  //    the mask bytes as the whole words that hold them
+  const uint8_t* mask0 = mask + static_cast<size_t>(u0) * B;
+  const int mshift = static_cast<int>(reinterpret_cast<uintptr_t>(mask0) & 3);
+  const uint8_t* s_mask = reinterpret_cast<const uint8_t*>(smem + L.mask) + mshift;
+  if (L.stage_book) {
+    stage(idx + static_cast<size_t>(u0) * BK, nu, BK, L.ik, s_idx);
+    stage(val + static_cast<size_t>(u0) * BK, nu, BK, L.ik, s_val);
+    stage(pi + static_cast<size_t>(u0) * pi_len, nu, pi_len, L.pv, s_pi);
+    const int words = nu > 0 ? (mshift + nu * B + 3) / 4 : 0;
+    stage(reinterpret_cast<const int*>(mask0 - mshift), 1, words, words,
+          reinterpret_cast<int*>(smem + L.mask));
+  }
+  if (L.stage_prices)
+    for (int r = threadIdx.x; r < R; r += blockDim.x) s_prices[r] = prices[r];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const float* p = L.stage_prices ? s_prices : prices;
+
+  // 2. one thread per row: select, write chosen, keep the merged chosen terms
+  const int t = threadIdx.x, wl = t / kWindow, lane = t % kWindow;
+  const int i = (w0 + wl) * kWindow + lane - lo;  // row of block j
+  const int u = j * m + i;
+  int* sr = s_sel_r + t * L.kp;
+  float* sx = s_sel_x + t * L.kp;
+  if (wl < nw && i >= 0 && i < m && u < U) {
+    const int q = u - u0;
+    const int* ib = L.stage_book ? s_idx + q * L.ik : idx + static_cast<size_t>(u) * BK;
+    const float* vb = L.stage_book ? s_val + q * L.ik : val + static_cast<size_t>(u) * BK;
+    const uint8_t* mb = L.stage_book ? s_mask + q * B : mask + static_cast<size_t>(u) * B;
+    const float* pib = L.stage_book ? s_pi + q * L.pv : pi + static_cast<size_t>(u) * pi_len;
+    int bhat;
+    bool active;
+    choose(ib, vb, mb, pib, pi_vector, p, B, K, bhat, active);
+    chosen[u] = active ? bhat : -1;
+    const float on = active ? 1.f : 0.f;
+    // the first term of each pool takes the k-order fold from +0 of the
+    // pool's terms; the later ones are marked dead (-1)
+    if (K <= kRegK) {
+      int tr[kRegK];
+      float tx[kRegK];
+#pragma unroll
+      for (int k = 0; k < kRegK; ++k)
+        if (k < K) { tr[k] = ib[bhat * K + k]; tx[k] = __fmul_rn(vb[bhat * K + k], on); }
+#pragma unroll
+      for (int k = 0; k < kRegK; ++k) {
+        if (k >= K) break;
+        bool first = true;
+#pragma unroll
+        for (int k0 = 0; k0 < k; ++k0) first = first && tr[k0] != tr[k];
+        float x = __fadd_rn(0.f, tx[k]);
+#pragma unroll
+        for (int k2 = k + 1; k2 < kRegK; ++k2)
+          if (k2 < K && tr[k2] == tr[k]) x = __fadd_rn(x, tx[k2]);
+        sr[k] = first ? tr[k] : -1;
+        sx[k] = x;
+      }
+    } else {
+      for (int k = 0; k < K; ++k) {
+        sr[k] = ib[bhat * K + k];
+        sx[k] = __fmul_rn(vb[bhat * K + k], on);
+      }
+      for (int k = 0; k < K; ++k) {
+        if (sr[k] < 0) continue;
+        float x = __fadd_rn(0.f, sx[k]);
+        for (int k2 = k + 1; k2 < K; ++k2)
+          if (sr[k2] == sr[k]) { x = __fadd_rn(x, sx[k2]); sr[k2] = -1; }
+        sx[k] = x;
+      }
+    }
+    // one row a block over one-hot rows: XLA's reduce is the row itself,
+    // whose one-hot sum drops its leading 0 +, so a row whose terms are all
+    // -0.0 on one pool keeps -0.0 there (ref.block_partials)
+    if (m == 1 && R <= kOneHotMaxR) {
+      bool negzero = true;
+      for (int k = 0; k < K; ++k)
+        negzero = negzero && ib[bhat * K + k] == ib[bhat * K] &&
+                  __float_as_uint(__fmul_rn(vb[bhat * K + k], on)) == 0x80000000u;
+      if (negzero) sx[0] = -0.f;
+    }
+  } else {
+    for (int k = 0; k < K; ++k) sr[k] = -1;  // padding and zero rows
+  }
+
+  if (whole) {  // m <= 32: one thread per pool folds the block whole
+    __syncthreads();
+    for (int r = t; r < R; r += blockDim.x) {
+      const MergedRow x{s_sel_r, s_sel_x, L.kp, K, r};
+      partials[static_cast<size_t>(j) * R + r] = m == 1 ? x(0) : fold_whole(x, m, vectorized != 0);
+    }
+    return;
+  }
+
+  // 3. level 1: warp wl folds window w0 + wl, its rows in order
+  if (wl >= nw) return;
+  float* out = buf + (static_cast<size_t>(j) * n1 + w0 + wl) * R;
+  const int* wr = s_sel_r + wl * kWindow * L.kp;
+  const float* wx = s_sel_x + wl * kWindow * L.kp;
+  __syncwarp();
+  if (R <= kRegPools) {  // lane l sums pools l, l+32, l+64, l+96 in registers
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int row = 0; row < kWindow; ++row)
+      for (int k = 0; k < K; ++k) {
+        const int r = wr[row * L.kp + k] - lane;
+        const float x = wx[row * L.kp + k];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (r == kWindow * q) a[q] = __fadd_rn(a[q], x);
+      }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (lane + kWindow * q < R) out[lane + kWindow * q] = a[q];
+    return;
+  }
+  // more pools: a shared (R,) accumulator; a row's live terms have
+  // distinct pools, so its lanes add them at once
+  float* acc = L.acc_smem ? s_acc + wl * R : out;
+  for (int r = lane; r < R; r += kWindow) acc[r] = 0.f;
+  __syncwarp();
+  for (int row = 0; row < kWindow; ++row) {
+    for (int k = lane; k < K; k += kWindow) {
+      const int r = wr[row * L.kp + k];
+      if (r >= 0) acc[r] = __fadd_rn(acc[r], wx[row * L.kp + k]);
+    }
+    __syncwarp();
+  }
+  if (L.acc_smem)
+    for (int r = lane; r < R; r += kWindow) out[r] = acc[r];
 }
 
-// Later levels: out[b][w][r] folds in[b][:][r] (n entries), left to right.
-__global__ void fold_buf_kernel(const float* __restrict__ in, int R, int nb, int n, int lo,
-                                int n_out, int whole, float* __restrict__ out) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<size_t>(nb) * n_out * R) return;
-  const int r = static_cast<int>(t % R);
-  const int w = static_cast<int>((t / R) % n_out);
-  const int b = static_cast<int>(t / (static_cast<size_t>(R) * n_out));
-  const BufValue x{in + static_cast<size_t>(b) * n * R + r, R};
-  out[t] = whole ? fold_whole(x, n, false) : fold_window(x, n, w, lo);
-}
-
-inline int blocks_for(size_t n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
-
-int launch_select(const int* idx, const float* val, const uint8_t* mask, const float* pi,
-                  int pi_vector, const float* prices, int U, int U_pad, int B, int K, int R,
-                  int* chosen, int* sel_idx, float* sel_val, float* z, cudaStream_t stream) {
-  const int stage_prices = R <= kSmemFloats / 2;
-  const int stage_z = z != nullptr && stage_prices;
-  const size_t smem = sizeof(float) * R * (stage_prices + stage_z);
-  select_kernel<<<blocks_for(U_pad > 0 ? U_pad : 1), kThreads, smem, stream>>>(
-      idx, val, mask, pi, pi_vector, prices, U, U_pad, B, K, R, stage_prices, stage_z,
-      chosen, sel_idx, sel_val, z);
-  return static_cast<int>(cudaGetLastError());
+// The later levels: grid (num_blocks, ceil(R / 32)), 256 threads; a CTA
+// folds 32 pools of one block, left folds of <= 32 values in fixed order,
+// level by level after buf's level 1, into partials.
+__global__ void __launch_bounds__(kThreads)
+fold_levels_kernel(float* __restrict__ buf, int R, int n1, float* __restrict__ partials) {
+  const int j = blockIdx.x, nb = gridDim.x;
+  const int r = blockIdx.y * kWindow + threadIdx.x % kWindow;
+  const int g = threadIdx.x / kWindow, groups = blockDim.x / kWindow;
+  const float* in = buf + static_cast<size_t>(j) * n1 * R;
+  float* level = buf + static_cast<size_t>(nb) * n1 * R;
+  int n = n1;
+  while (n > kWindow) {
+    const int n_out = (n + kWindow - 1) / kWindow;
+    const int lo = (n_out * kWindow - n) / 2;
+    float* out = level + static_cast<size_t>(j) * n_out * R;
+    if (r < R)
+      for (int w = g; w < n_out; w += groups)
+        out[static_cast<size_t>(w) * R + r] = fold_window(BufValue{in + r, R}, n, w, lo);
+    __syncthreads();
+    in = out;
+    level += static_cast<size_t>(nb) * n_out * R;
+    n = n_out;
+  }
+  if (g == 0 && r < R)
+    partials[static_cast<size_t>(j) * R + r] = fold_whole(BufValue{in + r, R}, n, false);
 }
 
 }  // namespace
@@ -250,50 +476,62 @@ extern "C" {
 int sparse_bid_eval_z(const int* idx, const float* val, const uint8_t* mask, const float* pi,
                       int pi_vector, const float* prices, int U, int B, int K, int R,
                       int* chosen, float* z, void* stream) {
-  return launch_select(idx, val, mask, pi, pi_vector, prices, U, U, B, K, R, chosen, nullptr,
-                       nullptr, z, static_cast<cudaStream_t>(stream));
+  const int stage = R <= kSmemFloats / 2;
+  const int blocks = U > 0 ? (U + kThreads - 1) / kThreads : 1;
+  select_z_kernel<<<blocks, kThreads, stage ? 2 * sizeof(float) * R : 0,
+                    static_cast<cudaStream_t>(stream)>>>(idx, val, mask, pi, pi_vector, prices,
+                                                         U, B, K, R, stage, chosen, z);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Partials mode.  U_pad = num_blocks * m.  sel_idx/sel_val hold U_pad * K
-// entries; scratch holds the window levels of the fold (the sum over levels
-// of num_blocks * ceil(n / 32) * R floats, n > 32 being each level's input
-// length); partials receives (num_blocks, R).  Returns cudaGetLastError().
+// Partials mode: one launch for m <= 32 rows a block, else two (level 1,
+// then the later levels).  scratch holds the window levels of the fold (the
+// sum over levels of num_blocks * ceil(n / 32) * R floats, n > 32 being each
+// level's input length, for m = ceil(U / num_blocks)); partials receives
+// (num_blocks, R).  Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// num_blocks outside 1..65535 or a K whose 32 rows of chosen terms do not
+// fit in shared memory (K > ~800).
 int sparse_bid_eval_partials(const int* idx, const float* val, const uint8_t* mask,
                              const float* pi, int pi_vector, const float* prices, int U, int B,
                              int K, int R, int num_blocks, int vectorized, int* chosen,
-                             int* sel_idx, float* sel_val, float* scratch, float* partials,
-                             void* stream_ptr) {
+                             float* scratch, float* partials, void* stream_ptr) {
+  using Kernel = decltype(&partials_kernel<0>);
+  static const Kernel kernels[kRegK + 1] = {partials_kernel<0>, partials_kernel<1>,
+                                            partials_kernel<2>, partials_kernel<3>,
+                                            partials_kernel<4>};
+  static size_t allowed[kRegK + 1] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024};
+  if (num_blocks < 1 || num_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int m = (U + num_blocks - 1) / num_blocks;
-  const int U_pad = m * num_blocks;
-  int err = launch_select(idx, val, mask, pi, pi_vector, prices, U, U_pad, B, K, R, chosen,
-                          sel_idx, sel_val, nullptr, stream);
-  if (err) return err;
-  const float* in = nullptr;  // nullptr: level 1 reads the selected rows
-  int n = m;
-  while (n > kWindow) {
-    const int n_out = (n + kWindow - 1) / kWindow;
-    const int lo = (n_out * kWindow - n) / 2;
-    const size_t total = static_cast<size_t>(num_blocks) * n_out * R;
-    if (in == nullptr)
-      fold_rows_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-          sel_idx, sel_val, K, R, num_blocks, n, lo, n_out, 0, 0, scratch);
-    else
-      fold_buf_kernel<<<blocks_for(total), kThreads, 0, stream>>>(in, R, num_blocks, n, lo,
-                                                                  n_out, 0, scratch);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    in = scratch;
-    scratch += total;
-    n = n_out;
+  const int whole = m <= kWindow;
+  const int n1 = whole ? 1 : (m + kWindow - 1) / kWindow;
+  const int lo = whole ? 0 : (n1 * kWindow - m) / 2;
+  // the most windows (8, 4, 2, 1) whose layout fits: the book staged
+  // within two CTAs an SM, else read from device memory within one
+  Layout L{};
+  int windows = 0;
+  for (int staged = 1; staged >= 0 && windows == 0; --staged)
+    for (int w = whole ? 1 : kMaxWindowsPerCta; w >= 1 && windows == 0; w /= 2) {
+      L = make_layout(kWindow * w, w, B, K, R, pi_vector, staged, staged);
+      if (sizeof(float) * L.words <= (staged ? kSmemBudget : kSmemMax)) windows = w;
+    }
+  if (windows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * L.words;
+  const int kt = K <= kRegK ? K : 0;
+  if (smem > allowed[kt]) {  // raised once per size, before any capture into a CUDA graph
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernels[kt], cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[kt] = smem;
   }
-  const size_t total = static_cast<size_t>(num_blocks) * R;
-  if (in == nullptr)
-    fold_rows_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-        sel_idx, sel_val, K, R, num_blocks, n, 0, 1, 1, vectorized, partials);
-  else
-    fold_buf_kernel<<<blocks_for(total), kThreads, 0, stream>>>(in, R, num_blocks, n, 0, 1, 1,
-                                                                partials);
+  kernels[kt]<<<dim3((n1 + windows - 1) / windows, num_blocks), kWindow * windows, smem,
+                    stream>>>(idx, val, mask, pi, pi_vector, prices, U, B, K, R, m, n1, lo,
+                              windows, whole, vectorized, L, chosen, scratch, partials);
+  if (whole) return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fold_levels_kernel<<<dim3(num_blocks, (R + kWindow - 1) / kWindow), kThreads, 0, stream>>>(
+      scratch, R, n1, partials);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,7 @@ stream and do not synchronise; outputs and scratch are allocated here.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,7 +28,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
     ),
     ("sparse_bid_eval", "sparse_bid_eval_partials"): (
-        _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
     ("sparse_bid_eval_csr", "sparse_bid_eval_csr_z"): (
         _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
@@ -37,6 +38,10 @@ _SIGNATURES = {
 
 
 _LAUNCHES = {fn: 0 for _, fn in _SIGNATURES}
+# the partials kernel's user blocks are one grid dimension
+MAX_BLOCKS = 65535
+# wkv6 works in one tile a chunk: at most 32 tokens by 64 keys
+WKV6_MAX_CHUNK, WKV6_MAX_K = 32, 64
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -61,6 +66,13 @@ def _launch(lib: str, fn: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
     _LAUNCHES[fn] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_windows(n: int) -> int:
+    """Window sums over all levels of the block fold of ``n`` rows (at least
+    1): the partials kernel's scratch, in units of num_blocks · R floats."""
+    return max(sum(-(-n_in // ref.FOLD_WINDOW) for n_in, _ in ref.fold_plan(n)), 1)
 
 
 def _stream(device: torch.device) -> int:
@@ -149,21 +161,18 @@ def sparse_bid_eval(
             _stream(dev),
         )
         return z, chosen
+    if not 1 <= num_blocks <= MAX_BLOCKS:
+        raise ValueError(f"sparse_bid_eval: num_blocks {num_blocks} outside 1..{MAX_BLOCKS}")
     m = -(-u // num_blocks)
-    u_pad = m * num_blocks
-    sel_idx = torch.empty((u_pad, k), dtype=torch.int32, device=dev)
-    sel_val = torch.empty((u_pad, k), dtype=torch.float32, device=dev)
-    n_scratch = sum(-(-n // ref.FOLD_WINDOW) for n, _ in ref.fold_plan(m))
-    scratch = torch.empty(max(n_scratch, 1) * num_blocks * num_resources,
+    scratch = torch.empty(_fold_windows(m) * num_blocks * num_resources,
                           dtype=torch.float32, device=dev)
     partials = torch.empty((num_blocks, num_resources), dtype=torch.float32, device=dev)
-    vectorized = int(u_pad == u and num_resources <= ref.ONEHOT_ROWS_MAX_R)
+    vectorized = int(m * num_blocks == u and num_resources <= ref.ONEHOT_ROWS_MAX_R)
     _launch(
         "sparse_bid_eval", "sparse_bid_eval_partials",
         idx.data_ptr(), val.data_ptr(), mask.data_ptr(), pi.data_ptr(), pi_vector,
         prices.data_ptr(), u, b, k, num_resources, num_blocks, vectorized, chosen.data_ptr(),
-        sel_idx.data_ptr(), sel_val.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
-        _stream(dev),
+        scratch.data_ptr(), partials.data_ptr(), _stream(dev),
     )
     return partials, chosen
 
@@ -225,7 +234,8 @@ def wkv6(
     r, k ``(B, T, H, K)`` and v ``(B, T, H, V)`` in float32 or bfloat16 (one
     dtype), w ``(B, T, H, K)`` and u ``(H, K)`` float32, state ``(B, H, K,
     V)`` float32 or None for zeros; chunks of ``min(chunk, T)`` tokens.
-    Float-close to :func:`.ref.wkv6_chunked`, which CPU tensors run.
+    Float-close to :func:`.ref.wkv6_chunked`, which CPU tensors run.  The
+    kernel takes chunks of at most 32 tokens and K ≤ 64 (one tile), any V.
     """
     if r.device.type == "cpu" or plain:
         return ref.wkv6_chunked(r, k, v, w, u, state, chunk)
@@ -248,6 +258,9 @@ def wkv6(
         _check("state", state, torch.float32, (b, h, kd, vd), dev)
     if t == 0 or chunk < 1:
         raise ValueError(f"wkv6: T = {t} tokens in chunks of {chunk}")
+    if min(chunk, t) > WKV6_MAX_CHUNK or kd > WKV6_MAX_K:
+        raise ValueError(f"wkv6: the kernel takes chunks of at most {WKV6_MAX_CHUNK} tokens "
+                         f"and K <= {WKV6_MAX_K}, got {min(chunk, t)} and K = {kd}")
     stream = _stream(dev)
     o = torch.empty((b, t, h, vd), dtype=torch.float32, device=dev)
     s_out = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)

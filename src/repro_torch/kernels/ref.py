@@ -315,12 +315,21 @@ def block_partials(
     Users are zero-padded to a multiple of ``num_blocks``; block j holds rows
     ``[j·m, (j+1)·m)`` and each (block, pool) column is reduced with XLA's
     fold (:func:`block_fold`) — bit-identical to the reference's
-    ``_user_block_partials``.
+    ``_user_block_partials``.  With one row a block the partials are the
+    rows themselves.
     """
     x = user_rows(sel_idx, sel_val, num_resources)
     pad = -x.shape[0] % num_blocks
+    if x.shape[0] + pad == num_blocks and num_resources <= ONEHOT_ROWS_MAX_R:
+        # One row a block: XLA's reduce is the row itself, computed unfused,
+        # where the one-hot sum drops its leading 0 +; a row whose terms are
+        # all -0.0 on one pool keeps -0.0 there.
+        neg = ((sel_idx == sel_idx[:, :1]) & (sel_val.view(torch.int32) == -(2**31))).all(1)
+        x[neg, sel_idx[neg, 0].long()] = -0.0
     if pad:
         x = torch.cat([x, x.new_zeros((pad, num_resources))])
+    if x.shape[0] == num_blocks:
+        return x
     cols = x.reshape(num_blocks, -1, num_resources).transpose(1, 2)  # (nb, R, m)
     return block_fold(cols, vectorized=not pad and num_resources <= ONEHOT_ROWS_MAX_R)
 

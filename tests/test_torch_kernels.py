@@ -194,3 +194,16 @@ def test_wrapper_rejects_other_devices():
     args = [t.to("meta") for t in _t(*_book(8, 2, 2, 5, vector_pi=False))]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ops.sparse_bid_eval(*args, 5)
+
+
+@pytest.mark.parametrize("num_blocks", [0, ops.MAX_BLOCKS + 1])
+def test_partials_wrapper_rejects_block_counts_past_the_grid(num_blocks):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        args = (torch.zeros((8, 2, 2), dtype=torch.int32, device="cuda"),
+                torch.zeros((8, 2, 2), device="cuda"),
+                torch.zeros((8, 2), dtype=torch.bool, device="cuda"),
+                torch.zeros(8, device="cuda"), torch.zeros(5, device="cuda"))
+        with pytest.raises(ValueError, match="num_blocks"):
+            ops.sparse_bid_eval(*args, 5, num_blocks)

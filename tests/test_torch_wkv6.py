@@ -142,3 +142,14 @@ def test_wrapper_on_cuda_tensors_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="CPU or CUDA"):
         meta = torch.zeros((1, 5, 2, 8), device="meta")
         ops.wkv6(meta, meta, meta, meta, torch.zeros((2, 8), device="meta"))
+
+
+@pytest.mark.parametrize("T,K,chunk", [(40, 8, 64), (5, 80, 32)], ids=["long_chunk", "wide_k"])
+def test_wrapper_rejects_shapes_past_the_kernel_tile(T, K, chunk):
+    """The kernel works a chunk as one tile of at most 32 tokens by 64 keys:
+    CUDA tensors past it raise before any launch."""
+    with FakeTensorMode():
+        r = torch.zeros((1, T, 2, K), device="cuda")
+        u = torch.zeros((2, K), device="cuda")
+        with pytest.raises(ValueError, match="at most 32 tokens"):
+            ops.wkv6(r, r, r, r, u, chunk=chunk)
