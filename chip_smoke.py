@@ -29,7 +29,13 @@ regime (PARTIALS_EDGE_M rows a block, padded and not, 8 and 1 blocks, R in
 PARTIALS_EDGE_R, repeated pools, -0.0, masked and priced-out users), and
 phase [5] holds ``wkv6`` within WKV6_TOL at edge shapes (WKV6_EDGE_T
 tokens, float32 and bf16, with and without an initial state, w down to
-1e-30).  Any failed check raises; nothing is caught and carried on.
+1e-30).  Phase [2] also holds both z-mode kernels against their plain
+versions (chosen exact, z within ``z_tolerance``) at edge books: U around
+the span plan's span and at 101,000, R in Z_EDGE_R (4,097 past the staged
+prices), every user out, a padded book read in place, CSR empty bundles and
+a CSR user longer than the staging budget, whose CTA takes the kernel's
+branch that reads its elements from device memory.  Any failed check
+raises; nothing is caught and carried on.
 
 Output: progress lines, then the card's ``name, power.limit``, then one JSON
 line ``{"kernels": [...]}`` with one entry per kernel entry point, then the
@@ -247,48 +253,84 @@ def z_tolerance(torch, sel_idx_flat, sel_val_flat, r):
     return 1e-5 * absz + 1e-6
 
 
+def exact_z(torch, sel_idx_flat, sel_val_flat, r):
+    """The chosen terms summed in float64: the plain version's z without its
+    own float32 rounding.  On one pool of 3·10^5 terms spanning 1e-3..4e3
+    (an edge book with R = 1) the float32 plain z strays past z_tolerance of
+    this sum, so the edge books hold the kernel to it."""
+    z = torch.zeros(r, dtype=torch.float64, device=sel_idx_flat.device)
+    return z.index_add_(0, sel_idx_flat.long(), sel_val_flat.double())
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 
-def check_padded_kernel(torch, ops, ref, book, label):
+def check_padded_kernel(torch, ops, ref, book, label, partials=True, quiet=False, edge=False):
     """z mode within tolerance, partials mode bit-identical, chosen exact
-    → (max |z err|, max |partials err|)."""
+    → (max |z err|, max |partials err|).  z is held to z_tolerance of the
+    plain version's chosen terms summed exactly and, except on an edge book,
+    of the plain version's float32 z."""
     idx, val, mask, pi, prices = book
     r = prices.numel()
     z, chosen = ops.sparse_bid_eval(idx, val, mask, pi, prices, r)
-    parts, chosen_p = ops.sparse_bid_eval(idx, val, mask, pi, prices, r, 8)
     torch.cuda.synchronize()
     z_ref, chosen_ref = ref.sparse_bid_eval(idx, val, mask, pi, prices, r)
-    parts_ref, _ = ref.sparse_bid_eval(idx, val, mask, pi, prices, r, 8)
     sel_idx, sel_val, _, _ = ref.select_padded(idx, val, mask, pi, prices)
     tol = z_tolerance(torch, sel_idx.reshape(-1), sel_val.reshape(-1), r)
+    z64 = exact_z(torch, sel_idx.reshape(-1), sel_val.reshape(-1), r)
     z_err = float((z - z_ref).abs().max())
-    parts_err = float((parts - parts_ref).abs().max())
+    exact_err = float((z.double() - z64).abs().max())
     check(torch.equal(chosen, chosen_ref), f"{label}: z-mode chosen differs")
-    check(torch.equal(chosen_p, chosen_ref), f"{label}: partials-mode chosen differs")
-    check(bool(((z - z_ref).abs() <= tol).all()), f"{label}: z off by {z_err}")
-    check(same_bits(torch, parts, parts_ref), f"{label}: partials off by {parts_err}")
-    log(f"  sparse_bid_eval {label}: chosen exact, partials max|err| {parts_err} "
-        f"(bit-identical), z max|err| {z_err:.3g} (max|z| {float(z_ref.abs().max()):.6g})")
+    check(bool(((z.double() - z64).abs() <= tol).all()), f"{label}: z off the exact sum by "
+          f"{exact_err}")
+    check(edge or bool(((z - z_ref).abs() <= tol).all()), f"{label}: z off by {z_err}")
+    parts_err = None
+    if partials:
+        parts, chosen_p = ops.sparse_bid_eval(idx, val, mask, pi, prices, r, 8)
+        torch.cuda.synchronize()
+        parts_ref, _ = ref.sparse_bid_eval(idx, val, mask, pi, prices, r, 8)
+        parts_err = float((parts - parts_ref).abs().max())
+        check(torch.equal(chosen_p, chosen_ref), f"{label}: partials-mode chosen differs")
+        check(same_bits(torch, parts, parts_ref), f"{label}: partials off by {parts_err}")
+    if not quiet:
+        log(f"  sparse_bid_eval {label}: chosen exact, partials max|err| {parts_err} "
+            f"(bit-identical), z max|err| {z_err:.3g}, off the exact sum {exact_err:.3g} "
+            f"(max|z| {float(z_ref.abs().max()):.6g})")
     return z_err, parts_err
 
 
 def check_csr_kernel(torch, ops, ref, prob, prices, label):
-    r = prob.num_resources
-    args = (prob.idx, prob.val, prob.offsets, prob.bundle_mask, prob.pi, prices, r, prob.k_bound)
-    z, chosen = ops.sparse_bid_eval_csr(*args)
+    args = (prob.idx, prob.val, prob.offsets, prob.bundle_mask, prob.pi, prices)
+    return check_csr_args(torch, ops, ref, args, prob.num_resources, prob.k_bound, label)
+
+
+def check_csr_args(torch, ops, ref, args, r, k_bound, label, quiet=False, edge=False):
+    """sparse_bid_eval_csr_z against its plain version: chosen exact, z
+    within z_tolerance of the chosen terms summed exactly and, except on an
+    edge book, of the plain float32 z → max |z err|."""
+    idx, val, offsets, mask = args[:4]
+    z, chosen = ops.sparse_bid_eval_csr(*args, r, k_bound)
     torch.cuda.synchronize()
-    z_ref, chosen_ref = ref.sparse_bid_eval_csr(*args)
-    kept = chosen_ref.long()[prob.rows.long() // prob.num_bundles] == (
-        prob.rows.long() % prob.num_bundles)
-    tol = z_tolerance(torch, prob.idx, torch.where(kept, prob.val, 0.0), r)
+    z_ref, chosen_ref = ref.sparse_bid_eval_csr(*args, r, k_bound)
+    u, b = mask.shape
+    rows = torch.repeat_interleave(torch.arange(u * b, device=idx.device),
+                                   (offsets[1:] - offsets[:-1]).long())
+    kept = chosen_ref.long()[rows // b] == rows % b
+    terms = torch.where(kept, val, 0.0)
+    tol = z_tolerance(torch, idx, terms, r)
+    z64 = exact_z(torch, idx, terms, r)
     z_err = float((z - z_ref).abs().max())
+    exact_err = float((z.double() - z64).abs().max())
     check(torch.equal(chosen, chosen_ref), f"{label}: csr chosen differs")
-    check(bool(((z - z_ref).abs() <= tol).all()), f"{label}: csr z off by {z_err}")
-    log(f"  sparse_bid_eval_csr {label}: chosen exact, z max|err| {z_err:.3g} "
-        f"(max|z| {float(z_ref.abs().max()):.6g}), nnz {prob.nnz}, k_bound {prob.k_bound}")
+    check(bool(((z.double() - z64).abs() <= tol).all()), f"{label}: csr z off the exact sum "
+          f"by {exact_err}")
+    check(edge or bool(((z - z_ref).abs() <= tol).all()), f"{label}: csr z off by {z_err}")
+    if not quiet:
+        log(f"  sparse_bid_eval_csr {label}: chosen exact, z max|err| {z_err:.3g}, off the exact "
+            f"sum {exact_err:.3g} (max|z| {float(z_ref.abs().max()):.6g}), nnz {idx.numel()}, "
+            f"k_bound {k_bound}")
     return z_err
 
 
@@ -369,6 +411,113 @@ def check_partials_edges(torch, np, ops, ref, dev) -> int:
     return len(cases)
 
 
+Z_EDGE_R = (1, 24, 128, 129, 1_000, 4_097)  # 4,097: the prices and z past shared memory
+
+
+def z_edge_users(span: int) -> tuple[int, ...]:
+    return (1, 31, span - 1, span, span + 1, 101_000)
+
+
+def csr_edge_book(torch, np, dev, u, r, vector_pi, seed, all_out=False, long_user=0, b=4,
+                  per_user=8):
+    """Flat CSR streams: each user holds exactly ``per_user`` elements over
+    ``b`` bundles (so the span plan does not move with U), empty bundles
+    included, pools repeated inside bundles, masked and priced-out users;
+    ``long_user`` > 0 gives user u // 2 that many elements more in bundle 0
+    → (args, k_bound)."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.integers(0, per_user + 1, (u, b - 1)), axis=1)
+    counts = np.diff(np.concatenate([np.zeros((u, 1), np.int64), cuts,
+                                     np.full((u, 1), per_user)], axis=1), axis=1)
+    counts[u // 2, 0] += long_user
+    offsets = np.zeros(u * b + 1, np.int64)
+    offsets[1:] = np.cumsum(counts.ravel())
+    nnz = int(offsets[-1])
+    idx = rng.integers(0, r, nnz).astype(np.int32)
+    rep = rng.random(nnz) < 0.3
+    rep[offsets[:-1][counts.ravel() > 0]] = False  # a bundle's first element
+    idx[rep] = idx[np.flatnonzero(rep) - 1]
+    val = (rng.uniform(-2, 4, nnz) * 10.0 ** rng.integers(-3, 4, nnz)).astype(np.float32)
+    mask = rng.random((u, b)) < 0.8
+    mask[rng.random(u) < 0.1] = False
+    pi = rng.uniform(-5, 40, (u, b) if vector_pi else u).astype(np.float32)
+    pi[rng.random(u) < 0.1] = -1e30
+    if all_out:
+        pi[:] = -np.inf
+    prices = rng.random(r).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (idx, val, offsets.astype(np.int32), mask, pi, prices)]
+    return args, max(int(counts.max()), 1)
+
+
+def csr_ctas_past_cap(ops, args, r, vector_pi) -> int:
+    """CTAs of the CSR plan whose stretch is longer than its cap: they read
+    their elements from device memory."""
+    idx, offsets, mask = args[0], args[2], args[3]
+    u, b = mask.shape
+    plan = ops.csr_z_plan(u, b, idx.numel(), r, vector_pi)
+    ends = offsets[::plan.span * b].tolist() + [int(offsets[-1])]
+    return sum(e - s > plan.cap for s, e in zip(ends[:-1], ends[1:]))
+
+
+def check_z_edges(torch, np, ops, ref, dev) -> int:
+    """Both z kernels against their plain versions, chosen exact and z within
+    z_tolerance of the plain selection's exact sum (``exact_z``): U in
+    z_edge_users(span) x R in Z_EDGE_R x scalar and vector pi on adversarial
+    books (repeated pools, masked and priced-out users, for CSR empty
+    bundles); books where every user is out; a padded book whose B*K does
+    not fit in shared memory; CSR books with one user longer than the
+    staging budget → the number of books checked."""
+    n = 0
+    for r in Z_EDGE_R:
+        for vector_pi in (False, True):
+            span = ops.z_plan(4, 3, r, vector_pi).span
+            for u in z_edge_users(span):
+                book = adversarial_book(torch, np, dev, u, r, vector_pi, seed=n)
+                check_padded_kernel(torch, ops, ref, book, f"z U={u} R={r} pi {vector_pi}",
+                                    partials=False, quiet=True, edge=True)
+                n += 1
+            span = ops.csr_z_plan(1_000, 4, 8_000, r, vector_pi).span
+            for u in z_edge_users(span):
+                args, k_bound = csr_edge_book(torch, np, dev, u, r, vector_pi, seed=n)
+                check(ops.csr_z_plan(u, 4, args[0].numel(), r, vector_pi).span == span,
+                      "csr edge book: the span moved with U")
+                check_csr_args(torch, ops, ref, args, r, k_bound,
+                               f"csr z U={u} R={r} pi {vector_pi}", quiet=True, edge=True)
+                n += 1
+    for vector_pi in (False, True):
+        book = adversarial_book(torch, np, dev, 5_000, 24, vector_pi, seed=n, all_out=True)
+        check_padded_kernel(torch, ops, ref, book, "z every user out", partials=False,
+                            quiet=True, edge=True)
+        args, k_bound = csr_edge_book(torch, np, dev, 5_000, 1_000, vector_pi, seed=n,
+                                      all_out=True)
+        check_csr_args(torch, ops, ref, args, 1_000, k_bound, "csr z every user out", quiet=True,
+                       edge=True)
+        # B*K = 8,192 pairs a user: 32 users do not fit, the book is read in place
+        book = adversarial_book(torch, np, dev, 2_000, 24, vector_pi, seed=n, k=2_048)
+        check(not ops.z_plan(4, 2_048, 24, vector_pi).stage_book, "K = 2,048 staged")
+        check_padded_kernel(torch, ops, ref, book, "z K=2048", partials=False, quiet=True,
+                            edge=True)
+        n += 3
+    long_ctas = 0
+    for r, vector_pi in ((1_000, False), (24, True)):
+        cap = ops.csr_z_plan(20_000, 4, 160_000, r, vector_pi).cap
+        args, k_bound = csr_edge_book(torch, np, dev, 20_000, r, vector_pi, seed=n,
+                                      long_user=2 * cap)
+        past = csr_ctas_past_cap(ops, args, r, vector_pi)
+        check(past == 1, f"csr long user: {past} CTAs past the staging budget")
+        check_csr_args(torch, ops, ref, args, r, k_bound,
+                       f"csr z one user of {k_bound} elements, R={r}", quiet=True, edge=True)
+        long_ctas += past
+        n += 1
+    log(f"  sparse_bid_eval_z and sparse_bid_eval_csr_z at {n} edge books (U in "
+        f"{{1, 31, span-1, span, span+1, 101000}} x R in {Z_EDGE_R} x scalar and vector pi, "
+        f"repeated pools, masked and priced-out users, CSR empty bundles; every user out; "
+        f"K = 2,048 read in place; {long_ctas} CSR CTAs past the staging budget read from "
+        f"device memory): chosen exact, z within z_tolerance")
+    return n
+
+
 def recording(fn, last: dict):
     """``fn`` that also keeps the chosen bundles of its latest call."""
 
@@ -388,19 +537,23 @@ def market_paths(torch, np, dev) -> list[dict]:
 
     # -- 2. kernels against their plain versions ----------------------------
     log("[2] kernels against their plain versions")
-    synthetic = {}  # off the main path: the synthetic planet books' partials times
+    # off the main path: the synthetic planet books' partials and z times,
+    # and the skewed CSR books'
+    synthetic, synthetic_z, skewed = {}, {}, {}
     for vector_pi in (False, True):
         book = synthetic_book(torch, np, dev, 100_000, 4, 8, 1_000, vector_pi, seed=1)
         label = f"100000x4x8 R=1000 {'vector' if vector_pi else 'scalar'} pi"
         check_padded_kernel(torch, ops, ref, book, label)
-        time_at_check_shape(torch, "sparse_bid_eval z mode",
-                            lambda: ops.sparse_bid_eval(*book, 1_000),
-                            padded_bound(*book, out_bytes=4 * 1_000))
+        z_bound = padded_bound(*book, out_bytes=4 * 1_000)
+        synthetic_z[label] = {"ms": time_at_check_shape(
+            torch, "sparse_bid_eval z mode", lambda: ops.sparse_bid_eval(*book, 1_000), z_bound),
+            "bound_ms": z_bound[0]}
         s_bound = padded_bound(*book, out_bytes=4 * 8 * 1_000)
         synthetic[label] = {"ms": time_at_check_shape(
             torch, "sparse_bid_eval partials", lambda: ops.sparse_bid_eval(*book, 1_000, 8),
             s_bound), "bound_ms": s_bound[0]}
     check_partials_edges(torch, np, ops, ref, dev)
+    check_z_edges(torch, np, ops, ref, dev)
     round_book = dense_round_book(torch, dev, 100_000, 4, 1_000, seed=1)
     check_dense_kernel(torch, ops, ref, round_book, "bid_eval_round 100000x4 R=1000")
     bundles, mask, pi, prices = round_book
@@ -438,9 +591,11 @@ def market_paths(torch, np, dev) -> list[dict]:
         label = f"skewed K 1..16 100000x4 R=1000 {'vector' if vector_pi else 'scalar'} pi"
         check_csr_kernel(torch, ops, ref, prob, prices, label)
         args = (prob.idx, prob.val, prob.offsets, prob.bundle_mask, prob.pi, prices)
-        time_at_check_shape(torch, "sparse_bid_eval_csr",
-                            lambda: ops.sparse_bid_eval_csr(*args, 1_000, prob.k_bound),
-                            csr_bound(*args, 1_000))
+        c_bound = csr_bound(*args, 1_000)
+        skewed[label] = {"ms": time_at_check_shape(
+            torch, "sparse_bid_eval_csr",
+            lambda: ops.sparse_bid_eval_csr(*args, 1_000, prob.k_bound), c_bound),
+            "bound_ms": c_bound[0], "nnz": prob.nnz}
 
     # -- 3. the main path at full size: each path's launches counted alone ---
     log("[3] main path: fleet_economy(100_000, 8, seed=0), 3 binding epochs warm-started, "
@@ -518,6 +673,11 @@ def market_paths(torch, np, dev) -> list[dict]:
     b_ms, b_by = padded_bound(*eco_args, out_bytes=4 * 8 * r)
     log(f"  sparse_bid_eval_partials {u}x{b}x{k} R={r}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
+    # z mode at the economy book: the fused epoch's in-loop z
+    ez_ms = graph_ms(torch, lambda: ops.sparse_bid_eval(*eco_args, r))
+    ez_bound = padded_bound(*eco_args, out_bytes=4 * r)
+    log(f"  sparse_bid_eval_z {u}x{b}x{k} R={r} vector pi: {ez_ms:.4f} ms, "
+        f"bound {ez_bound[0]:.4f} ms ({ez_bound[1]})")
     pu, pb, pk = planet.idx.shape
     z_err = 0.0
     for at, prices in (("start", p0), ("cleared", clock_prices["padded"])):
@@ -637,7 +797,10 @@ def market_paths(torch, np, dev) -> list[dict]:
          "launches": path_launches["padded"]["sparse_bid_eval_z"],
          "max_abs_err": z_err, "ms": z_ms, "plain_ms": zp_ms, "bound_ms": zb_ms,
          "bound_by": zb_by, "path": "standalone clock, padded book",
-         "shape": f"U={pu} B={pb} K={pk} R=1000 scalar pi"},
+         "shape": f"U={pu} B={pb} K={pk} R=1000 scalar pi",
+         "economy_book": {"shape": f"U={u} B={b} K={k} R={r} vector pi", "ms": ez_ms,
+                          "bound_ms": ez_bound[0]},
+         "synthetic_planet_books": synthetic_z},
         {"name": "sparse_bid_eval_csr_z", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_bid_eval_csr.cu",
          "replaces": "src/repro/kernels/sparse_bid_eval_csr.py:126", "library_ms": None,
@@ -645,7 +808,8 @@ def market_paths(torch, np, dev) -> list[dict]:
          "max_abs_err": csr_err, "ms": c_ms, "plain_ms": cp_ms, "bound_ms": cb_ms,
          "bound_by": cb_by, "path": "standalone clock, CSR book",
          "shape": f"U={planet_csr.num_users} B={planet_csr.num_bundles} nnz={planet_csr.nnz} "
-                  f"k_bound={planet_csr.k_bound} R=1000 scalar pi"},
+                  f"k_bound={planet_csr.k_bound} R=1000 scalar pi",
+         "skewed_books": skewed},
     ]
     return kernels
 

@@ -9,11 +9,11 @@
 // The round returns chosen (U,) int32 (-1 = out) and the excess demand of the
 // chosen bundles, in one of two forms:
 //
-//   z mode         z (R,): one thread per user scatters its chosen bundle into
-//                  a shared-memory copy of z with shared atomics, then each CTA
-//                  adds its tile to z with one global atomicAdd per pool.  The
-//                  order of those float additions changes from run to run, so
-//                  z is float-close only, never bit-reproducible.
+//   z mode         z (R,): each CTA sums its users' chosen bundles on the SM
+//                  and adds them to z with one global atomicAdd per touched
+//                  pool.  The order of those float additions changes from
+//                  run to run, so z is float-close only, never
+//                  bit-reproducible (the deterministic form is partials mode).
 //   partials mode  (num_blocks, R): the deterministic settlement form, the
 //                  block sums of the users' demand rows reduced exactly as
 //                  XLA's CPU backend reduces them for the JAX reference
@@ -31,7 +31,32 @@
 // B = 8, K = 3, R = 24, vector pi) one round reads idx+val 12.4 MB, pi
 // 2.1 MB and mask 0.5 MB and writes chosen 0.26 MB -- about 15.3 MB, or
 // ~4.6 us at 3.35 TB/s, so an 842-round cold clock is bounded below by
-// ~3.9 ms.
+// ~3.9 ms.  For the planet book in z mode (U = 101,000, B = 3, K = 2,
+// R = 1,000, scalar pi) it is 6.0 MB, ~1.8 us.  Both books stay in the 50 MB
+// L2 from one clock round to the next, so a round's staging reads L2, and
+// the fixed costs (two launches, the CTAs' barriers, the shared atomics of
+// the scatter) weigh more than the bytes: tools/z_split.py times each step.
+//
+// z design: the host plans a span (ops.z_plan): the most users, up to 512,
+// whose staged rows fit in 64 KB of shared memory, three CTAs an SM; the
+// grid is ceil(U / span).  A small zero kernel clears z (a kernel node
+// costs ~2 us less than a memset node in a CUDA graph on an NVIDIA H100
+// 80GB HBM3 at 700 W), then a CTA
+//   1. stages its span's idx, val, pi and mask and the prices with
+//      cp.async, all in flight at once: by 16 bytes where rows can lie back
+//      to back (B*K odd or 2 mod 4, at most two-way bank conflicts), else by
+//      4 bytes at an odd row stride, as partials mode does; one wait, one
+//      barrier;
+//   2. selects, one thread a user, from shared memory with choose();
+//   3. scatters the chosen terms into shared memory: for R <= 128 each warp
+//      into its own (R,) tile without atomics (lanes that share a pool add
+//      in turns, warp_add), since the shared float atomicAdd is a CAS loop
+//      that serializes on few addresses; above, into one (R,) tile with
+//      shared atomics, which rarely collide;
+//   4. adds its tiles to z, one global atomicAdd a touched pool.
+// Past the plan's limits, explicit branches: a B*K whose 32 users do not
+// fit reads the book from device memory; R > 4,096 reads the prices from
+// device memory and scatters straight into z with global atomics.
 //
 // Partials design: one launch reads the book once and keeps the chosen rows
 // on the SM; a second, small one folds the later levels.  A level-1 CTA owns
@@ -59,15 +84,15 @@
 // left fold).  No float atomics and no inter-CTA counters.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWindow = 32;               // XLA's tree-reduction window
-constexpr int kSmemFloats = 12 * 1024;    // z mode: 48 KB of dynamic shared memory
 constexpr int kMaxWindowsPerCta = 8;
-constexpr int kRegK = 4;                  // partials: terms a bundle merged in registers
+constexpr int kRegK = 4;                  // K = 1..4 compiled apart; partials: terms merged
 constexpr int kRegPools = 4 * 32;         // partials: pools a lane can sum in registers
 constexpr int kOneHotMaxR = 128;          // ref.ONEHOT_ROWS_MAX_R
 constexpr size_t kSmemBudget = 110 * 1024;  // partials: two CTAs an SM
@@ -116,42 +141,195 @@ __device__ __forceinline__ void choose(const int* ib, const float* vb, const uin
 }
 
 // ---------------------------------------------------------------------------
+// staging: 4-byte cp.async copies into shared memory, all in flight at once
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+// Starts copying n consecutive 4-byte elements of g to s (16-byte aligned),
+// by 16 bytes where g is 16-byte aligned too, else by 4.
+template <typename T>
+__device__ void stage_flat(const T* __restrict__ g, int n, T* s) {
+  int e = threadIdx.x;
+  if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    for (const int n4 = n / 4; e < n4; e += blockDim.x) cp_async16(s + 4 * e, g + 4 * e);
+    e = n / 4 * 4 + threadIdx.x;
+  }
+  for (; e < n; e += blockDim.x) cp_async4(s + e, g + e);
+}
+
+// Starts copying rows x len consecutive 4-byte elements of g into s, row q
+// at s + q*stride (an odd stride: consecutive rows start on different
+// banks).  Consecutive threads copy consecutive elements, every copy in
+// flight at once; cp.async.wait_all completes them.
+template <typename T>
+__device__ void stage(const T* __restrict__ g, int rows, int len, int stride, T* s) {
+  const int n = rows * len, nt = blockDim.x;
+  const int drow = nt / len, dcol = nt % len;
+  int row = threadIdx.x / len, col = threadIdx.x % len;
+  for (int e = threadIdx.x; e < n; e += nt) {
+    cp_async4(s + row * stride + col, g + e);
+    row += drow;
+    col += dcol;
+    if (col >= len) { col -= len; ++row; }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // z mode
 // ---------------------------------------------------------------------------
 
-// One thread per user: writes chosen and scatters the chosen bundle into z.
-__global__ void select_z_kernel(const int* __restrict__ idx, const float* __restrict__ val,
-                                const uint8_t* __restrict__ mask, const float* __restrict__ pi,
-                                int pi_vector, const float* __restrict__ prices, int U, int B,
-                                int K, int R, int stage, int* __restrict__ chosen,
-                                float* __restrict__ z) {
-  extern __shared__ float smem[];
-  float* s_prices = smem;
-  float* s_z = smem + (stage ? R : 0);
-  if (stage)
-    for (int r = threadIdx.x; r < R; r += blockDim.x) { s_prices[r] = prices[r]; s_z[r] = 0.f; }
-  __syncthreads();
-  const float* p = stage ? s_prices : prices;
+// One CTA's span plan, computed on the host (repro_torch/kernels/ops.py
+// z_plan) and passed as kZPlanInts ints in this order.  Word offsets of the
+// staged idx, val, pi and mask, the prices, the users' chosen bundles (sel)
+// and the z tile (one a warp with z_mode kZWarpTiles).
+struct ZPlan {
+  int span, threads, stage_book, stage_prices, z_mode, ik, pv;
+  int idx, val, pi, mask, prices, sel, z, words;
+};
+constexpr int kZPlanInts = 15;
+static_assert(sizeof(ZPlan) == kZPlanInts * sizeof(int), "ZPlan is the host's ints");
+constexpr int kZThreads = 512;
+constexpr int kZGlobal = 0, kZTile = 1, kZWarpTiles = 2;  // ZPlan::z_mode
 
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  if (u < U) {
-    const size_t row = static_cast<size_t>(u) * B;
+// Adds x to tile[r] for every lane of a converged warp, without atomics:
+// lanes that share a pool (__match_any_sync) add in turns by their rank
+// among them, so each round touches a pool once; the rounds are the largest
+// group.  Lanes with nothing to add pass a pool of -1 - lane.
+__device__ __forceinline__ void warp_add(float* tile, int r, float x, int lane) {
+  const unsigned peers = __match_any_sync(0xffffffffu, r);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  const int rounds = __reduce_max_sync(0xffffffffu, static_cast<unsigned>(rank)) + 1;
+  for (int i = 0; i < rounds; ++i) {
+    if (rank == i && r >= 0) tile[r] = __fadd_rn(tile[r], x);
+    __syncwarp();
+  }
+}
+
+// The CTA owns users [blockIdx.x * span, +span) and adds their chosen terms
+// into z once.  KT > 0 compiles it for K = KT.
+template <int KT>
+__global__ void __launch_bounds__(kZThreads)
+select_z_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                const uint8_t* __restrict__ mask, const float* __restrict__ pi, int pi_vector,
+                const float* __restrict__ prices, int U, int B, int K_, int R, ZPlan L,
+                int* __restrict__ chosen, float* __restrict__ z) {
+  extern __shared__ __align__(16) float smem[];
+  const int K = KT > 0 ? KT : K_;
+  int* s_idx = reinterpret_cast<int*>(smem) + L.idx;
+  float* s_val = smem + L.val;
+  float* s_pi = smem + L.pi;
+  float* s_prices = smem + L.prices;
+  int* s_sel = reinterpret_cast<int*>(smem) + L.sel;
+  float* s_z = smem + L.z;
+  const int u0 = blockIdx.x * L.span;
+  const int nu = min(L.span, U - u0);
+  const int BK = B * K, pi_len = pi_vector ? B : 1;
+  const int t = threadIdx.x, nt = blockDim.x;
+
+  // 1. stage the span's idx, val and pi (rows back to back by 16 bytes, or
+  //    at an odd stride by 4), its mask bytes as the whole words that hold
+  //    them, and the prices; zero the z tiles
+  const uint8_t* mask0 = mask + static_cast<size_t>(u0) * B;
+  const int mshift = static_cast<int>(reinterpret_cast<uintptr_t>(mask0) & 3);
+  const uint8_t* s_mask = reinterpret_cast<const uint8_t*>(smem + L.mask) + mshift;
+  if (L.stage_book) {
+    const int* gi = idx + static_cast<size_t>(u0) * BK;
+    const float* gv = val + static_cast<size_t>(u0) * BK;
+    const float* gp = pi + static_cast<size_t>(u0) * pi_len;
+    if (L.ik == BK) {  // B*K odd or 2 mod 4: at most two-way bank conflicts
+      stage_flat(gi, nu * BK, s_idx);
+      stage_flat(gv, nu * BK, s_val);
+    } else {
+      stage(gi, nu, BK, L.ik, s_idx);
+      stage(gv, nu, BK, L.ik, s_val);
+    }
+    if (L.pv == pi_len) stage_flat(gp, nu * pi_len, s_pi);
+    else stage(gp, nu, pi_len, L.pv, s_pi);
+    stage_flat(reinterpret_cast<const int*>(mask0 - mshift), (mshift + nu * B + 3) / 4,
+               reinterpret_cast<int*>(smem + L.mask));
+  }
+  if (L.stage_prices) stage_flat(prices, R, s_prices);
+  const int z_words = L.z_mode == kZWarpTiles ? nt / 32 * R : L.z_mode == kZTile ? R : 0;
+  for (int r = t; r < z_words; r += nt) s_z[r] = 0.f;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const float* p = L.stage_prices ? s_prices : prices;
+  // user q's pairs: staged, or in device memory (a B*K whose 32 users do
+  // not fit in shared memory)
+  auto pairs = [&](int q, const int*& ib, const float*& vb) {
+    ib = L.stage_book ? s_idx + q * L.ik : idx + static_cast<size_t>(u0 + q) * BK;
+    vb = L.stage_book ? s_val + q * L.ik : val + static_cast<size_t>(u0 + q) * BK;
+  };
+
+  // 2. select: one thread a user, the arithmetic of choose()
+  for (int q = t; q < nu; q += nt) {
+    const int* ib;
+    const float* vb;
+    pairs(q, ib, vb);
+    const uint8_t* mb = L.stage_book ? s_mask + q * B : mask + static_cast<size_t>(u0 + q) * B;
+    const float* pib = L.stage_book ? s_pi + q * L.pv : pi + static_cast<size_t>(u0 + q) * pi_len;
     int bhat;
     bool active;
-    choose(idx + row * K, val + row * K, mask + row, pi_vector ? pi + row : pi + u, pi_vector,
-           p, B, K, bhat, active);
-    chosen[u] = active ? bhat : -1;
-    if (active) {
-      const size_t off = (row + bhat) * K;
-      for (int k = 0; k < K; ++k) atomicAdd(stage ? &s_z[idx[off + k]] : &z[idx[off + k]],
-                                            val[off + k]);
+    choose(ib, vb, mb, pib, pi_vector, p, B, K, bhat, active);
+    chosen[u0 + q] = active ? bhat : -1;
+    s_sel[q] = active ? bhat : -1;
+  }
+  __syncthreads();
+
+  // 3. scatter the chosen terms into the tiles
+  if (L.z_mode == kZWarpTiles) {
+    // each warp into its own tile, without atomics (R <= 128, where shared
+    // atomics on few addresses serialize)
+    const int lane = t % 32;
+    float* tile = s_z + t / 32 * R;
+    for (int q0 = t - lane; q0 < nu; q0 += nt) {
+      const int q = q0 + lane;
+      const int bh = q < nu ? s_sel[q] : -1;
+      const int* ib;
+      const float* vb;
+      pairs(q, ib, vb);
+      for (int k = 0; k < K; ++k)
+        warp_add(tile, bh >= 0 ? ib[bh * K + k] : -1 - lane, bh >= 0 ? vb[bh * K + k] : 0.f,
+                 lane);
+    }
+  } else {
+    for (int q = t; q < nu; q += nt) {
+      const int bh = s_sel[q];
+      if (bh < 0) continue;
+      const int* ib;
+      const float* vb;
+      pairs(q, ib, vb);
+      for (int k = 0; k < K; ++k) {
+        if (L.z_mode == kZTile) atomicAdd(&s_z[ib[bh * K + k]], vb[bh * K + k]);
+        else atomicAdd(&z[ib[bh * K + k]], vb[bh * K + k]);
+      }
     }
   }
-  if (stage) {
-    __syncthreads();
-    for (int r = threadIdx.x; r < R; r += blockDim.x)
-      if (s_z[r] != 0.f) atomicAdd(&z[r], s_z[r]);
+  if (L.z_mode == kZGlobal) return;
+  __syncthreads();
+
+  // 4. flush: one global atomic a touched pool (the warp tiles summed first)
+  const int tiles = L.z_mode == kZWarpTiles ? nt / 32 : 1;
+  for (int r = t; r < R; r += nt) {
+    float x = s_z[r];
+    for (int w = 1; w < tiles; ++w) x = __fadd_rn(x, s_z[w * R + r]);
+    if (x != 0.f) atomicAdd(&z[r], x);
   }
+}
+
+// z = 0 ahead of the scatter (a kernel node: see the design note above)
+__global__ void zero_kernel(float* __restrict__ z, int R) {
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R; r += gridDim.x * blockDim.x)
+    z[r] = 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -190,28 +368,6 @@ Layout make_layout(int rows, int windows, int B, int K, int R, int pi_vector, in
   L.acc = take(acc_smem && R > kRegPools ? windows * R : 0);
   L.words = at;
   return L;
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
-}
-
-// Starts copying rows x len consecutive 4-byte elements of g into s, row q
-// at s + q*stride (an odd stride: consecutive rows start on different
-// banks).  Consecutive threads copy consecutive elements, every copy in
-// flight at once; cp.async.wait_all completes them.
-template <typename T>
-__device__ void stage(const T* __restrict__ g, int rows, int len, int stride, T* s) {
-  const int n = rows * len, nt = blockDim.x;
-  const int drow = nt / len, dcol = nt % len;
-  int row = threadIdx.x / len, col = threadIdx.x % len;
-  for (int e = threadIdx.x; e < n; e += nt) {
-    cp_async4(s + row * stride + col, g + e);
-    row += drow;
-    col += dcol;
-    if (col >= len) { col -= len; ++row; }
-  }
 }
 
 // x(i): the value of block row i at pool r, from its merged chosen terms
@@ -472,15 +628,36 @@ fold_levels_kernel(float* __restrict__ buf, int R, int n1, float* __restrict__ p
 
 extern "C" {
 
-// z mode.  z must hold R zeros on entry.  Returns cudaGetLastError().
+// z mode.  plan: the host's span plan (kZPlanInts ints, ZPlan's order).
+// A small launch zeroes z, then one of ceil(U / span) CTAs adds the chosen
+// terms.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan
+// of another length.
 int sparse_bid_eval_z(const int* idx, const float* val, const uint8_t* mask, const float* pi,
                       int pi_vector, const float* prices, int U, int B, int K, int R,
-                      int* chosen, float* z, void* stream) {
-  const int stage = R <= kSmemFloats / 2;
-  const int blocks = U > 0 ? (U + kThreads - 1) / kThreads : 1;
-  select_z_kernel<<<blocks, kThreads, stage ? 2 * sizeof(float) * R : 0,
-                    static_cast<cudaStream_t>(stream)>>>(idx, val, mask, pi, pi_vector, prices,
-                                                         U, B, K, R, stage, chosen, z);
+                      const int* plan, int plan_len, int* chosen, float* z, void* stream_ptr) {
+  using Kernel = decltype(&select_z_kernel<0>);
+  static const Kernel kernels[kRegK + 1] = {select_z_kernel<0>, select_z_kernel<1>,
+                                            select_z_kernel<2>, select_z_kernel<3>,
+                                            select_z_kernel<4>};
+  static size_t allowed[kRegK + 1] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024};
+  if (plan_len != kZPlanInts) return static_cast<int>(cudaErrorInvalidValue);
+  ZPlan L;
+  memcpy(&L, plan, sizeof(L));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (R > 0)
+    zero_kernel<<<min((R + kZThreads - 1) / kZThreads, 1024), kZThreads, 0, stream>>>(z, R);
+  const cudaError_t zeroed = cudaGetLastError();
+  if (zeroed != cudaSuccess || U == 0) return static_cast<int>(zeroed);
+  const size_t smem = sizeof(float) * L.words;
+  const int kt = K <= kRegK ? K : 0;
+  if (smem > allowed[kt]) {  // raised once per size, before any capture into a CUDA graph
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernels[kt], cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[kt] = smem;
+  }
+  kernels[kt]<<<(U + L.span - 1) / L.span, L.threads, smem, stream>>>(
+      idx, val, mask, pi, pi_vector, prices, U, B, K, R, L, chosen, z);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,13 +26,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     ("clock_bid_eval", "bid_eval"): (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     ("sparse_bid_eval", "sparse_bid_eval_z"): (
-        _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
     ),
     ("sparse_bid_eval", "sparse_bid_eval_partials"): (
         _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
     ("sparse_bid_eval_csr", "sparse_bid_eval_csr_z"): (
-        _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
     ),
     ("wkv6", "wkv6"): (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
@@ -42,6 +43,168 @@ _LAUNCHES = {fn: 0 for _, fn in _SIGNATURES}
 MAX_BLOCKS = 65535
 # wkv6 works in one tile a chunk: at most 32 tokens by 64 keys
 WKV6_MAX_CHUNK, WKV6_MAX_K = 32, 64
+
+# ---------------------------------------------------------------------------
+# z mode: the span plans.  A z-mode CTA owns one contiguous span of users,
+# stages that span of the book into shared memory and adds its chosen terms
+# into z once.  The plans below fix the span and the shared-memory carve-up
+# (in 4-byte words, each region 16-byte aligned) on the host; the kernels
+# take them as they are (csrc/sparse_bid_eval.cu, csrc/sparse_bid_eval_csr.cu).
+# ---------------------------------------------------------------------------
+
+# The limits below were chosen with tools/z_split.py on an NVIDIA H100 80GB
+# HBM3 at 700 W: at most 512 users in 64 KB a CTA (three CTAs an SM) beat
+# 1,024 users in ~100 KB at the economy (R = 24) and CSR books and tie at
+# the planet book.
+Z_THREADS = 512  # threads of a z-mode CTA, at most: the kernels' __launch_bounds__
+Z_MAX_SPAN = 512  # users a z-mode CTA owns, at most
+Z_SMEM_BUDGET = 64 * 1024  # bytes of shared memory a CTA
+Z_STAGE_MAX_R = 4096  # prices and the z tile live in shared memory up to this R
+Z_WARP_TILE_MAX_R = 128  # z summed in one shared tile a warp, without atomics, up to this R
+CSR_SLACK = 1.25  # room for a CSR span's elements over the book's mean
+
+
+class ZPlan(NamedTuple):
+    """One padded-book z-mode CTA: ``span`` users on ``threads`` threads;
+    the book staged (``stage_book``) or read from device memory; prices
+    staged; z summed through global atomics (``z_mode`` 0), one shared tile
+    (1) or one shared tile a warp (2); idx/val rows ``ik`` words apart, pi
+    rows ``pv`` (:func:`_row_stride`); word offsets of each region,
+    ``words`` in all."""
+
+    span: int
+    threads: int
+    stage_book: int
+    stage_prices: int
+    z_mode: int
+    ik: int
+    pv: int
+    idx: int
+    val: int
+    pi: int
+    mask: int
+    prices: int
+    sel: int
+    z: int
+    words: int
+
+
+class CsrZPlan(NamedTuple):
+    """One CSR z-mode CTA: ``span`` users on ``threads`` threads; its
+    ``span·B + 1`` offsets and, when they fit in ``cap`` elements from the
+    16-byte boundary at or below their start, its stretch of the idx/val
+    streams staged (else read from device memory); the rest as
+    :class:`ZPlan`."""
+
+    span: int
+    threads: int
+    stage_prices: int
+    z_mode: int
+    pv: int
+    cap: int
+    off: int
+    idx: int
+    val: int
+    pi: int
+    mask: int
+    prices: int
+    sel: int
+    z: int
+    words: int
+
+
+def _carve(**sizes: int) -> tuple[dict[str, int], int]:
+    """Word offsets of consecutive regions, each rounded up to 4 words."""
+    at, offsets = 0, {}
+    for name, words in sizes.items():
+        offsets[name] = at
+        at += -(-words // 4) * 4
+    return offsets, at
+
+
+def _row_stride(n: int) -> int:
+    """Words from one staged row of n words to the next: n itself where rows
+    back to back meet at most two-way bank conflicts (n odd, or 2 mod 4;
+    copied by 16 bytes), else the next odd n (copied by 4 bytes)."""
+    return n if n % 4 == 2 else n | 1
+
+
+def _z_common(num_bundles: int, num_resources: int, pi_vector: bool) -> tuple[int, int, int]:
+    """(pv, stage_prices, z_mode) of both books."""
+    stage_prices = int(num_resources <= Z_STAGE_MAX_R)
+    z_mode = 0 if not stage_prices else 2 if num_resources <= Z_WARP_TILE_MAX_R else 1
+    return _row_stride(num_bundles) if pi_vector else 1, stage_prices, z_mode
+
+
+def _z_words(z_mode: int, threads: int, num_resources: int) -> int:
+    """Words of the z tiles: none, one (R,) tile, or one a warp."""
+    return (0, num_resources, threads // 32 * num_resources)[z_mode]
+
+
+@functools.lru_cache(maxsize=None)
+def z_plan(num_bundles: int, k: int, num_resources: int, pi_vector: bool,
+           max_span: int = Z_MAX_SPAN) -> ZPlan:
+    """The padded book's span plan: the most users (a multiple of 32, at
+    most ``max_span``) whose staged rows fit in :data:`Z_SMEM_BUDGET`; with
+    fewer than 32 the book is read from device memory instead."""
+    if num_bundles < 1 or k < 1 or max_span < 32 or max_span % 32:
+        raise ValueError(f"z mode: B = {num_bundles}, K = {k}, span {max_span}")
+    ik = _row_stride(num_bundles * k)
+    pv, stage_prices, z_mode = _z_common(num_bundles, num_resources, pi_vector)
+    r_words = num_resources if stage_prices else 0  # the staged prices
+
+    def plan(span: int, stage_book: int) -> ZPlan:
+        s, threads = (span if stage_book else 0), min(Z_THREADS, span)
+        at, words = _carve(
+            idx=s * ik, val=s * ik, pi=s * pv,
+            mask=(s * num_bundles + 3) // 4 + 1 if stage_book else 0,  # whole words + a shift
+            prices=r_words, sel=span, z=_z_words(z_mode, threads, num_resources))
+        return ZPlan(span, threads, stage_book, stage_prices, z_mode, ik, pv, **at, words=words)
+
+    for span in range(max_span, 31, -32):
+        if 4 * plan(span, 1).words <= Z_SMEM_BUDGET:
+            return plan(span, 1)
+    return plan(max_span, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def csr_z_plan(num_users: int, num_bundles: int, nnz: int, num_resources: int,
+               pi_vector: bool, max_span: int = Z_MAX_SPAN) -> CsrZPlan:
+    """The CSR book's span plan: the most users (a multiple of 32, at most
+    ``max_span``) whose offsets, pi, mask and ``CSR_SLACK`` × the book's mean
+    elements a user fit in :data:`Z_SMEM_BUDGET`; ``cap``, the elements a
+    CTA's stretch may hold, takes what the budget leaves.  A CTA whose
+    stretch is longer reads it from device memory."""
+    if num_bundles < 1 or max_span < 32 or max_span % 32:
+        raise ValueError(f"csr z mode: B = {num_bundles}, span {max_span}")
+    pv, stage_prices, z_mode = _z_common(num_bundles, num_resources, pi_vector)
+    r_words = num_resources if stage_prices else 0  # the staged prices
+    mean = nnz / max(num_users, 1)
+
+    def plan(span: int, cap: int) -> CsrZPlan:
+        threads = min(Z_THREADS, span)
+        at, words = _carve(
+            off=span * num_bundles + 1, idx=cap, val=cap, pi=span * pv,
+            mask=(span * num_bundles + 3) // 4 + 1, prices=r_words, sel=span,
+            z=_z_words(z_mode, threads, num_resources))
+        return CsrZPlan(span, threads, stage_prices, z_mode, pv, cap, **at, words=words)
+
+    def fits(span: int) -> bool:
+        need = -(-int(span * mean * CSR_SLACK) // 4) * 4
+        return 4 * plan(span, need).words <= Z_SMEM_BUDGET
+
+    span = next((s for s in range(max_span, 31, -32) if fits(s)), 32)
+    cap = (Z_SMEM_BUDGET // 4 - plan(span, 0).words) // 8 * 4  # words left, halved, whole 16 B
+    if cap < 0:
+        raise ValueError(f"csr z mode: {num_bundles} bundles a user do not fit a "
+                         f"{span}-user span in {Z_SMEM_BUDGET} bytes")
+    return plan(span, cap)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_ints(plan: tuple) -> ctypes.Array:
+    """The plan as the C array the kernel's entry point reads."""
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -153,12 +316,13 @@ def sparse_bid_eval(
     chosen = torch.empty(u, dtype=torch.int32, device=dev)
     pi_vector = int(pi.ndim == 2)
     if num_blocks is None:
-        z = torch.zeros(num_resources, dtype=torch.float32, device=dev)
+        plan = _plan_ints(z_plan(b, k, num_resources, bool(pi_vector)))
+        z = torch.empty(num_resources, dtype=torch.float32, device=dev)
         _launch(
             "sparse_bid_eval", "sparse_bid_eval_z",
             idx.data_ptr(), val.data_ptr(), mask.data_ptr(), pi.data_ptr(), pi_vector,
-            prices.data_ptr(), u, b, k, num_resources, chosen.data_ptr(), z.data_ptr(),
-            _stream(dev),
+            prices.data_ptr(), u, b, k, num_resources, plan, len(plan), chosen.data_ptr(),
+            z.data_ptr(), _stream(dev),
         )
         return z, chosen
     if not 1 <= num_blocks <= MAX_BLOCKS:
@@ -206,12 +370,13 @@ def sparse_bid_eval_csr(
     _check("mask", mask, torch.bool, (u, b), dev)
     _check("pi", pi, torch.float32, (u,) if pi.ndim == 1 else (u, b), dev)
     _check("prices", prices, torch.float32, (num_resources,), dev)
+    plan = _plan_ints(csr_z_plan(u, b, nnz, num_resources, pi.ndim == 2))
     chosen = torch.empty(u, dtype=torch.int32, device=dev)
-    z = torch.zeros(num_resources, dtype=torch.float32, device=dev)
+    z = torch.empty(num_resources, dtype=torch.float32, device=dev)
     _launch(
         "sparse_bid_eval_csr", "sparse_bid_eval_csr_z",
         idx.data_ptr(), val.data_ptr(), offsets.data_ptr(), mask.data_ptr(), pi.data_ptr(),
-        int(pi.ndim == 2), prices.data_ptr(), u, b, k_bound, num_resources,
+        int(pi.ndim == 2), prices.data_ptr(), u, b, k_bound, num_resources, plan, len(plan),
         chosen.data_ptr(), z.data_ptr(), _stream(dev),
     )
     return z, chosen
