@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 Builds the hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
-(four sources, one ``nvcc`` each, in parallel), holds each against its plain
+(five sources, one ``nvcc`` each, in parallel), holds each against its plain
 PyTorch version on the card, drives the port's main path at full size, and
 checks the main path on the card against itself through the plain versions.
-The main path is five paths, each driven with the launch counts set to 0
+The main path is six paths, each driven with the launch counts set to 0
 just before it and read just after: the 100k-agent §V economy (three binding
 epochs warm-started, three with cold restarts) through
-``sparse_bid_eval_partials``; the 100k x 1k standalone clock through
+``sparse_bid_eval_partials``, its epochs held bit for bit against the JAX
+reference's run recorded in ``tools/fleet_100k_reference.json``; phase [6],
+the same economy as one fused epoch program (``fused=True``: pack, clock,
+settle, apply on the card as CUDA graphs) through ``sparse_bid_eval_partials``
+and ``ordered_scatter_add``, held against the same recording; the 100k x 1k
+standalone clock through
 ``sparse_bid_eval_csr_z`` (CSR book) and ``sparse_bid_eval_z`` (padded
 book); the same market densified, the paper's §III encoding, through
 ``bid_eval``; and phase [5], ``rwkv6-7b`` at full width and depth (float32
@@ -23,7 +28,12 @@ hand it in the served prefill).  Phase [4] also provisions the quickstart
 and elastic-training books to device grants through ``bid_eval`` and
 through its plain version; phase [5] also runs the whole model with
 ``wkv6`` forced to its plain version, and the chunked prefill against
-token-by-token decode.  Phase [2] also holds ``sparse_bid_eval_partials``
+token-by-token decode; phase [6] also runs the fused economy pipelined
+against sequential epochs, the protocol economies fused on the card against
+the same on the CPU, a 10k fused economy through the kernels against their
+plain versions, and the 100k fused economy with the z-mode in-loop z.  Every
+clock replays one captured chunk of ``CHECK_EVERY`` rounds as a CUDA graph,
+and launch counts include the replays.  Phase [2] also holds ``sparse_bid_eval_partials``
 against its plain version bit for bit at edge books across every fold
 regime (PARTIALS_EDGE_M rows a block, padded and not, 8 and 1 blocks, R in
 PARTIALS_EDGE_R, repeated pools, -0.0, masked and priced-out users), and
@@ -54,8 +64,10 @@ operations a clock on each of the 132 SMs at the card's maximum SM clock.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import statistics
 import subprocess
@@ -66,6 +78,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+REFERENCE = ROOT / "tools" / "fleet_100k_reference.json"  # tools/record_reference.py
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 GRAPH_CALLS = 20  # calls captured in one timed graph
@@ -518,8 +531,35 @@ def check_z_edges(torch, np, ops, ref, dev) -> int:
     return n
 
 
+def epoch_record(np, stats, eco) -> dict:
+    """The bitwise fields of one epoch, as tools/record_reference.py records
+    them: prices and reserves as bytes, rounds, migrations, flags and the
+    sha256 of the population's placements after the epoch."""
+    placed = np.ascontiguousarray(np.asarray(eco.pop.placed, np.int64))
+    return {
+        "prices": np.asarray(stats.prices).tobytes().hex(),
+        "prices_dtype": str(np.asarray(stats.prices).dtype),
+        "reserve": np.asarray(stats.reserve).tobytes().hex(),
+        "reserve_dtype": str(np.asarray(stats.reserve).dtype),
+        "rounds": int(stats.rounds), "migrations": int(stats.migrations),
+        "converged": bool(stats.converged), "system_ok": bool(stats.system_ok),
+        "placed_sha256": hashlib.sha256(placed.tobytes()).hexdigest(),
+    }
+
+
+def check_reference(run: str, got: list[dict]) -> None:
+    """The card's epochs against the recorded JAX run ``run``, field by field."""
+    want = json.loads(REFERENCE.read_text())["runs"][run]
+    bad = [f"epoch {e} {k}" for e, (w, g) in enumerate(zip(want, got)) for k in w if g[k] != w[k]]
+    check(len(got) == len(want) and not bad, f"{run}: differs from the recorded reference: {bad}")
+    log(f"  {run}: {len(got)} epochs bit for bit as the recorded JAX reference (rounds "
+        f"{[g['rounds'] for g in got]}, prices, reserves, migrations, flags, placed sha256)")
+
+
 def recording(fn, last: dict):
-    """``fn`` that also keeps the chosen bundles of its latest call."""
+    """``fn`` that also keeps the chosen bundles of its latest call.  The
+    clock's rounds replay a CUDA graph, which calls no Python, so the latest
+    call is the eager settle evaluation after the clock."""
 
     def demand(*args):
         out = fn(*args)
@@ -616,6 +656,7 @@ def market_paths(torch, np, dev) -> list[dict]:
     epoch_rounds = {}
     for label, eco in economies.items():
         epoch_rounds[label] = []
+        records = []
         for epoch in range(3):
             before = ops.launch_counts()["sparse_bid_eval_partials"]
             t0 = time.perf_counter()
@@ -630,8 +671,11 @@ def market_paths(torch, np, dev) -> list[dict]:
             check(np.isfinite(st.prices).all() and st.prices.shape == (eco.R,), "epoch prices")
             check(grew >= st.rounds + 1, f"epoch {epoch}: {grew} launches for {st.rounds} rounds")
             epoch_rounds[label].append(st.rounds)
+            records.append(epoch_record(np, st, eco))
+        check_reference(f"staged {label}", records)
     torch.cuda.synchronize()
     path_launches = {"economy": ops.launch_counts()}
+    log(f"  CUDA graphs captured: {ops.capture_stats()}")
     check(path_launches["economy"]["sparse_bid_eval_partials"] > 0,
           "the economy never launched sparse_bid_eval_partials")
 
@@ -653,7 +697,9 @@ def market_paths(torch, np, dev) -> list[dict]:
         flags = pt.verify_system(problem, res)
         torch.cuda.synchronize()
         path_launches[name] = ops.launch_counts()
-        log(f"  standalone clock 100000x1000 ({name}): {rounds} rounds, {wall * 1e3:.1f} ms, "
+        captured = ops.capture_stats()
+        log(f"  standalone clock 100000x1000 ({name}): {rounds} rounds, {wall * 1e3:.1f} ms "
+            f"(of which capturing {captured['graphs']} graph {captured['seconds'] * 1e3:.1f} ms), "
             f"converged {converged}, SYSTEM {all(flags.values())}, {kernel} launches "
             f"{path_launches[name][kernel]}")
         check(converged and all(flags.values()), f"standalone {name}: {flags}")
@@ -724,14 +770,18 @@ def market_paths(torch, np, dev) -> list[dict]:
     # the warm-started economy's cold epoch 0, its clock alone: the rest of
     # the epoch's wall-clock is host work
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = pt.clock_auction(eco_prob, eco_prices, probe.clock,
                            demand_fn=ops.blocked_bid_demand_fn(probe.settle_blocks))
     clock_rounds = int(res.rounds)
     eco_clock_ms = (time.perf_counter() - t0) * 1e3
+    capture_ms = ops.capture_stats()["seconds"] * 1e3
     check(clock_rounds == epoch_rounds["warm-started"][0], "epoch 0's book replays its rounds")
-    log(f"  economy epoch 0 clock alone: {clock_rounds} rounds in {eco_clock_ms:.1f} ms "
-        f"({eco_clock_ms / clock_rounds * 1e3:.1f} us a round)")
+    log(f"  economy epoch 0 clock alone (staged): {clock_rounds} rounds in {eco_clock_ms:.1f} ms, "
+        f"of which capturing the chunk graph {capture_ms:.1f} ms; "
+        f"{(eco_clock_ms - capture_ms) / clock_rounds * 1e3:.1f} us a replayed round "
+        f"(was 201.6 / 219.1 ms before the graphs)")
 
     # -- 4. the main path on the card, against itself -------------------------
     log("[4] fleet_economy(10_000, 8, seed=0), 2 epochs: kernels vs plain versions on the card")
@@ -1097,6 +1147,304 @@ def serving(torch, dev) -> dict:
             "serve_ms": serve_s * 1e3}
 
 
+# ---------------------------------------------------------------------------
+# [6] the fused epoch program
+# ---------------------------------------------------------------------------
+
+
+def stats_bit_identical(np, sa, sb) -> bool:
+    """Every EpochStats field the same, arrays bit for bit (NaN is NaN)."""
+    da, db = dataclasses.asdict(sa), dataclasses.asdict(sb)
+    for k, va in da.items():
+        vb = db[k]
+        if isinstance(va, np.ndarray):
+            if va.dtype != vb.dtype or va.tobytes() != vb.tobytes():
+                return False
+        elif not (va == vb or (va != va and vb != vb)):
+            return False
+    return True
+
+
+EXACT_FIELDS = ("prices", "reserve", "psi", "rounds", "migrations", "converged", "system_ok",
+                "pct_settled", "clock_escalations", "rationed_rows")
+
+
+def same_state(np, a, b) -> bool:
+    return all(np.array_equal(getattr(a.pop, f), getattr(b.pop, f))
+               for f in ("placed", "home", "fill_rate", "epoch")) and \
+        np.array_equal(a.usage, b.usage) and np.array_equal(a.belief, b.belief)
+
+
+def timed(torch, obj, name: str, sink: dict) -> None:
+    """Wrap method ``name`` of ``obj``: each call's host ms, between device
+    synchronisations, and the CUDA-graph capture ms inside it, go to
+    ``sink[name]`` (for a fused program's ``_run``, to ``sink[stage]``)."""
+    from repro_torch.kernels import ops
+
+    inner = getattr(obj, name)
+
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        cap0, t0 = ops.capture_stats()["seconds"], time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        key = args[0] if name == "_run" else name
+        sink.setdefault(key, []).append(((time.perf_counter() - t0) * 1e3,
+                                         (ops.capture_stats()["seconds"] - cap0) * 1e3))
+        return out
+
+    setattr(obj, name, call)
+
+
+def epoch_breakdown(torch, eco) -> dict:
+    """Time a fused economy's epochs by part: the host's prepare (reserves,
+    randomness, overlays), the device stages (pack, clock, settle, each
+    from a synchronised start), the host's adopt (the copies back) and
+    finalize (the stats)."""
+    sink: dict = {}
+    prog = eco._fused_program()
+    for name in ("_fused_prepare", "_fused_adopt", "_fused_finalize"):
+        timed(torch, eco, name, sink)
+    timed(torch, prog, "_run", sink)
+    timed(torch, prog, "_clock", sink)
+    return sink
+
+
+def scatter_bound(index, source, out) -> tuple[float, str]:
+    """Each index and value read once, out read and written once; one add a
+    kept row."""
+    return bound(nbytes(index, source, out), nbytes(out), source.numel())
+
+
+def fused_paths(torch, np, dev, kernels: list) -> None:
+    """Phase [6]: the fused epoch program → the partials entry gains the
+    fused path's launches and its blocked book's time; the
+    ``ordered_scatter_add`` entry is appended."""
+    from repro_torch import core as pt
+    from repro_torch.core.fused import build_fused_epoch
+    from repro_torch.kernels import ops, ref
+
+    log("[6] fused epochs: fleet_economy(100_000, 8, seed=0, fused=True), 3 binding epochs "
+        "warm-started, 3 with cold restarts, on CUDA graphs")
+    economies = {label: pt.fleet_economy(100_000, 8, seed=0, warm_start=warm, fused=True,
+                                         device=dev)
+                 for label, warm in (("warm-started", True), ("cold restarts", False))}
+    by_part = epoch_breakdown(torch, economies["cold restarts"])
+    warm_stats, walls = [], {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for label, eco in economies.items():
+        records, walls[label] = [], []
+        for epoch in range(3):
+            before = ops.launch_counts()["sparse_bid_eval_partials"]
+            cap0 = ops.capture_stats()["seconds"]
+            t0 = time.perf_counter()
+            st = eco.run_epoch()
+            wall = (time.perf_counter() - t0) * 1e3
+            grew = ops.launch_counts()["sparse_bid_eval_partials"] - before
+            cap = (ops.capture_stats()["seconds"] - cap0) * 1e3
+            walls[label].append(wall)
+            log(f"  fused {label} epoch {epoch}: {st.rounds} rounds, {wall:.1f} ms (capturing "
+                f"{cap:.1f} ms), converged {st.converged}, system_ok {st.system_ok}, "
+                f"migrations {st.migrations}, sparse_bid_eval_partials launches {grew}")
+            check(st.converged and st.system_ok, f"fused {label} epoch {epoch}")
+            check(grew >= st.rounds + 1,
+                  f"fused epoch {epoch}: {grew} launches, {st.rounds} rounds")
+            records.append(epoch_record(np, st, eco))
+            if label == "warm-started":
+                warm_stats.append(st)
+        check_reference(f"fused {label}", records)
+    torch.cuda.synchronize()
+    fused_launches = ops.launch_counts()
+    captured = ops.capture_stats()
+    log(f"  launches {fused_launches}; CUDA graphs captured {captured['graphs']} in "
+        f"{captured['seconds'] * 1e3:.1f} ms")
+    check(fused_launches["ordered_scatter_add"] > 0, "the fused path never ran ordered_scatter_add")
+    (clock_ms, clock_cap), rounds0 = by_part["_clock"][0], int(warm_stats[0].rounds)  # both cold
+    for e in range(3):
+        split = {k: v[e][0] for k, v in by_part.items() if k != "clock0" and len(v) > e}
+        log(f"  fused cold restarts epoch {e} by part (ms, synchronised): "
+            + ", ".join(f"{k.lstrip('_')} {v:.1f}" for k, v in split.items()))
+    log(f"  fused epoch 0 clock alone: {rounds0} rounds in {clock_ms:.1f} ms, of which capturing "
+        f"its chunk graph {clock_cap:.1f} ms; {(clock_ms - clock_cap) / rounds0 * 1e3:.1f} us a "
+        f"replayed round (the staged clock before the graphs: 201.6 / 219.1 ms)")
+
+    # -- pipeline=True against sequential epochs: two new economies, past
+    #    their first epoch (and its captures), timed alike -----------------------
+    seq = pt.fleet_economy(100_000, 8, seed=0, warm_start=True, fused=True, device=dev)
+    pipe = pt.fleet_economy(100_000, 8, seed=0, warm_start=True, fused=True, pipeline=True,
+                            device=dev)
+    check(stats_bit_identical(np, seq.run_epoch(), pipe.run_horizon(1)[0]), "pipelined epoch 0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq_stats = [seq.run_epoch() for _ in range(3)]
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    finalize_ms = []
+    inner_finalize = pipe._fused_finalize
+
+    def finalize(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner_finalize(*args, **kw)
+        finalize_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    pipe._fused_finalize = finalize
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    piped = pipe.run_horizon(3)
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    check(all(stats_bit_identical(np, a, b) for a, b in zip(seq_stats, piped))
+          and all(stats_bit_identical(np, a, b) for a, b in zip(warm_stats[1:], piped))
+          and same_state(np, seq, pipe), "pipelined horizon differs")
+    log(f"  pipeline=True run_horizon(3), epochs 1-3: every EpochStats field and the end state "
+        f"bit for bit as 3 sequential run_epoch calls; {pipe_ms:.1f} ms against {seq_ms:.1f} "
+        f"ms sequential; the stats assembly of the first two "
+        f"({', '.join(f'{t:.1f}' for t in finalize_ms[:-1])} ms) runs while the next epoch's "
+        f"settle stage is on the card, the last ({finalize_ms[-1]:.1f} ms) after it")
+    pipeline = {"sequential_ms": seq_ms, "pipelined_ms": pipe_ms, "finalize_ms": finalize_ms}
+    del pipe, seq
+
+    # -- the protocol economies: the card against the CPU, and staged -----------
+    for seed in (0, 3, 7):
+        card = pt.make_fleet_economy(seed=seed, fused=True, device=dev)
+        cpu = pt.make_fleet_economy(seed=seed, fused=True, device="cpu")
+        staged = pt.make_fleet_economy(seed=seed, device=dev)
+        rounds = []
+        for epoch in range(4):
+            sc, sh, ss = card.run_epoch(), cpu.run_epoch(), staged.run_epoch()
+            check(stats_bit_identical(np, sc, sh), f"protocol seed {seed} epoch {epoch}: card "
+                  "and CPU fused epochs differ")
+            if epoch == 0:
+                check(all(np.array_equal(getattr(sc, f), getattr(ss, f)) for f in EXACT_FIELDS),
+                      f"protocol seed {seed}: fused and staged epoch 0 differ")
+            rounds.append(sc.rounds)
+        check(same_state(np, card, cpu), f"protocol seed {seed}: end state")
+        log(f"  protocol economy seed {seed} (U_cap {card.R + 2 * len(card.pop)}): 4 fused epochs "
+            f"on the card bit for bit as on the CPU (every field, end state), rounds {rounds}; "
+            f"epoch 0 as the staged path's")
+
+    # -- 10k: the kernels against their plain versions, eagerly -------------------
+    eco_k = pt.fleet_economy(10_000, 8, seed=0, warm_start=True, fused=True, device=dev)
+    eco_p = pt.fleet_economy(10_000, 8, seed=0, warm_start=True, fused=True, device=dev)
+    eco_p._fused_fn = build_fused_epoch(
+        num_agents=10_000, num_clusters=eco_p.C, num_rtypes=eco_p.T, clock=eco_p.clock,
+        settle_blocks=eco_p.settle_blocks, plain=True)
+    eco_p._fused_n = 10_000
+    for epoch in range(2):
+        sk, sp_ = eco_k.run_epoch(), eco_p.run_epoch()
+        check(stats_bit_identical(np, sk, sp_), f"10k fused epoch {epoch}: kernels vs plain")
+        log(f"  fused 10k epoch {epoch}: {sk.rounds} rounds; kernels (graphs) and plain versions "
+            "(eager) bit for bit, every field")
+    check(same_state(np, eco_k, eco_p), "10k fused end state")
+    del eco_k, eco_p
+
+    # -- fused_backend="z": the z-mode kernel's in-loop z -------------------------
+    eco_z = pt.fleet_economy(100_000, 8, seed=0, warm_start=True, fused=True,
+                             fused_backend="z", device=dev)
+    z_parts: dict = {}
+    timed(torch, eco_z._fused_program(), "_clock", z_parts)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    z_rounds = []
+    for epoch in range(3):
+        t0 = time.perf_counter()
+        st = eco_z.run_epoch()
+        wall = (time.perf_counter() - t0) * 1e3
+        check(st.converged and st.system_ok and np.isfinite(st.prices).all(),
+              f"fused z epoch {epoch}")
+        z_rounds.append(st.rounds)
+        exact = warm_stats[epoch].prices
+        rel = float(np.max(np.abs(st.prices - exact) / exact))
+        log(f"  fused_backend='z' epoch {epoch}: {st.rounds} rounds, {wall:.1f} ms (its clock "
+            f"{z_parts['_clock'][-1][0]:.1f} ms, capturing {z_parts['_clock'][-1][1]:.1f}), "
+            f"converged, SYSTEM-feasible; max |p - p_exact| / p_exact {rel:.3g}")
+    z_launches = ops.launch_counts()
+    check(z_launches["sparse_bid_eval_z"] >= sum(z_rounds), "z backend: sparse_bid_eval_z")
+    del eco_z
+
+    # -- the kernels at the fused path's shapes ----------------------------------
+    log("[timing] fused path kernels (CUDA graphs)")
+    prog = economies["cold restarts"]._fused_fn
+    b = prog._book
+    blocked = (b["b_idx"], b["b_val"], b["b_mask"], b["b_pi"], prog._prices)
+    r = prog.R
+    parts, chosen = ops.sparse_bid_eval(*blocked, r, prog.nb, standalone_fold=True)
+    parts_ref, chosen_ref = ops.sparse_bid_eval(*blocked, r, prog.nb, standalone_fold=True,
+                                                plain=True)
+    check(same_bits(torch, parts, parts_ref) and torch.equal(chosen, chosen_ref),
+          "fused blocked book: partials differ from the plain version")
+    fb_ms = graph_ms(torch, lambda: ops.sparse_bid_eval(*blocked, r, prog.nb,
+                                                        standalone_fold=True))
+    fb_plain = graph_ms(torch, lambda: ops.sparse_bid_eval(*blocked, r, prog.nb,
+                                                           standalone_fold=True, plain=True))
+    fb_bound = padded_bound(*blocked, out_bytes=4 * prog.nb * r)
+    shape = (f"U={b['b_idx'].shape[0]} B={prog.C} K={prog.K} R={r} vector pi, "
+             f"8 blocks of {prog.m_cap}")
+    log(f"  sparse_bid_eval_partials, the fused blocked book {shape}: {fb_ms:.4f} ms, plain "
+        f"{fb_plain:.4f} ms, bound {fb_bound[0]:.4f} ms ({fb_bound[1]}); partials bit-identical")
+    partials_entry = next(k for k in kernels if k["name"] == "sparse_bid_eval_partials")
+    partials_entry["launches_staged_economy"] = partials_entry["launches"]
+    partials_entry["launches_fused_economy"] = fused_launches["sparse_bid_eval_partials"]
+    partials_entry["launches"] += fused_launches["sparse_bid_eval_partials"]
+    partials_entry["path"] = "fleet economy, 6 epochs staged and 6 fused"
+    partials_entry["fused_book"] = {"shape": shape, "ms": fb_ms, "plain_ms": fb_plain,
+                                    "bound_ms": fb_bound[0]}
+    partials_entry["fused_epochs"] = {
+        "walls_ms": walls, "epoch0_clock_ms": clock_ms, "epoch0_clock_capture_ms": clock_cap,
+        "cold_epoch_parts_ms": {k: [t for t, _ in v] for k, v in by_part.items()},
+        "us_per_replayed_round": (clock_ms - clock_cap) / rounds0 * 1e3, "pipeline": pipeline,
+        "z_backend_rounds": z_rounds}
+
+    # the supply scatter of the fused pack: every (row, bundle, term) of the
+    # slot book, dead terms dropped; and the usage commit's f64 rows
+    flat_val = b["val"].reshape(-1)
+    index = torch.where(flat_val != 0, b["idx"].reshape(-1).long(), -1)
+    source = flat_val.abs()
+    zeros = torch.zeros(r, dtype=torch.float32, device=dev)
+    got = ops.ordered_scatter_add(zeros.clone(), index, source)
+    want = ops.ordered_scatter_add(zeros.clone(), index, source, plain=True)
+    err = float((got - want).abs().max())
+    check(same_bits(torch, got, want), f"ordered_scatter_add supply: off by {err}")
+    eco = economies["cold restarts"]
+    req = torch.from_numpy(eco.pop.req).to(dev)
+    rows_at = torch.from_numpy(np.where(eco.pop.placed >= 0, eco.pop.placed, eco.C)).to(dev)
+    usage = torch.from_numpy(eco.usage).to(dev)
+    got64 = ops.ordered_scatter_add(usage.clone(), rows_at, -req)
+    want64 = ops.ordered_scatter_add(usage.clone(), rows_at, -req, plain=True)
+    check(torch.equal(got64, want64), "ordered_scatter_add float64 usage rows differ")
+    os_ms = graph_ms(torch, lambda: ops.ordered_scatter_add(zeros.clone(), index, source))
+    keep = (index >= 0).nonzero()[:, 0]
+    kept_i, kept_s = index[keep].contiguous(), source[keep].contiguous()
+    lib_ms = graph_ms(torch, lambda: zeros.clone().index_add_(0, kept_i, kept_s))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ops.ordered_scatter_add(zeros.clone(), index, source, plain=True)
+    os_plain = (time.perf_counter() - t0) * 1e3 / 5
+    os_bound = scatter_bound(index, source, zeros)
+    u_ms = graph_ms(torch, lambda: ops.ordered_scatter_add(usage.clone(), rows_at, -req))
+    # the wrapper's stable sort alone, at both shapes
+    sort_ms = [graph_ms(torch, lambda k=torch.where((i >= 0) & (i < m), i, m).to(
+        ops._sort_dtype(m)): torch.sort(k, stable=True)) for i, m in ((index, r), (rows_at, eco.C))]
+    log(f"  ordered_scatter_add supply, {index.numel()} rows ({keep.numel()} kept) into {r}: "
+        f"{os_ms:.4f} ms, plain (the host's index_add_, copies included) {os_plain:.4f} ms, "
+        f"index_add_ on the card (atomics, unordered) {lib_ms:.4f} ms, bound {os_bound[0]:.4f} "
+        f"ms ({os_bound[1]}); float64 usage rows ({req.shape[0]} x {req.shape[1]} into "
+        f"{eco.C}): {u_ms:.4f} ms; both bit-identical to the plain version; their stable sorts "
+        f"alone {sort_ms[0]:.4f} and {sort_ms[1]:.4f} ms")
+    kernels.append({
+        "name": "ordered_scatter_add", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ordered_scatter.cu",
+        "replaces": "src/repro/core/fused.py:361 (XLA scatter-add on the CPU, no pallas_call)",
+        "launches": fused_launches["ordered_scatter_add"], "max_abs_err": err, "ms": os_ms,
+        "plain_ms": os_plain, "bound_ms": os_bound[0], "bound_by": os_bound[1],
+        "library_ms": lib_ms, "path": "fused fleet economy, 6 epochs",
+        "shape": f"E={index.numel()} ({keep.numel()} kept) into R={r}, float32",
+        "usage_rows": {"shape": f"E={req.shape[0]} W={req.shape[1]} into C={eco.C}, float64",
+                       "ms": u_ms}, "sort_ms": sort_ms})
+    del economies, prog, b, blocked
+
+
 def run(torch, np) -> dict:
     from repro_torch.kernels import build
 
@@ -1114,6 +1462,9 @@ def run(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()  # the dense books leave the card before the model comes
     kernels.append(serving(torch, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_paths(torch, np, dev, kernels)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,6 +6,8 @@
 * auction: clock_auction, ClockConfig, verify_system, surplus_and_trade
 * bidlang, policies, faults: numpy copies of the reference's modules
 * economy, markets: the §V multi-epoch economy and its builders
+* fused: the fused epoch program (pack → clock → settle → apply on the
+  device, CUDA graphs on the card) behind ``Economy(fused=True)``
 * state: an economy's state as a numpy tree, shared with the reference
 * provisioner: settled allocations → per-job device grants
 """
@@ -41,6 +43,7 @@ from .reserve import (
 )
 from .auction import (
     ClockConfig,
+    ClockLoop,
     blocked_demand_fn,
     bundle_costs,
     clock_auction,
@@ -55,6 +58,12 @@ from .auction import (
 )
 from .bidlang import All, BundleExplosion, OneOf, Res, flatten, flatten_sparse, pool_index
 from .economy import Agent, AgentPopulation, Economy, EpochStats, make_fleet_economy
+from .fused import (
+    DeviceMarketState,
+    FusedEpoch,
+    build_fused_epoch,
+    fused_program_cache_size,
+)
 from .markets import fleet_economy, fleet_population, random_market
 from .policies import (
     POLICY_REGISTRY,
@@ -78,12 +87,13 @@ __all__ = [
     "sparsify",
     "CURVE_FAMILIES", "DEFAULT_WEIGHTING", "ExpWeighting", "LogisticWeighting",
     "PiecewisePowerWeighting", "reputation_weighted_reserve", "reserve_prices",
-    "ClockConfig", "blocked_demand_fn", "bundle_costs", "clock_auction", "csr_proxy_demand",
+    "ClockConfig", "ClockLoop", "blocked_demand_fn", "bundle_costs", "clock_auction", "csr_proxy_demand",
     "escalate_clock", "proxy_demand",
     "sparse_bundle_costs", "sparse_proxy_demand", "sparse_proxy_demand_blocked",
     "surplus_and_trade", "verify_system",
     "All", "BundleExplosion", "OneOf", "Res", "flatten", "flatten_sparse", "pool_index",
     "Agent", "AgentPopulation", "Economy", "EpochStats", "make_fleet_economy",
+    "DeviceMarketState", "FusedEpoch", "build_fused_epoch", "fused_program_cache_size",
     "fleet_economy", "fleet_population", "random_market",
     "POLICY_REGISTRY", "BidderPolicy", "BudgetSmoothingPolicy", "Observation", "PolicyAction",
     "PriceChasingPolicy", "StaticPolicy", "FaultDraw", "FaultModel",

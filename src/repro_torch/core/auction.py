@@ -10,7 +10,8 @@ The loop state (round count, prices, previous prices, done flag) stays on
 the device.  Rounds after convergence are no-ops, as in the reference's
 ``while_loop`` body, and the host reads the done flag once every
 :data:`CHECK_EVERY` rounds, so a clock on the card is not a round trip per
-round.  Demand evaluation is the only thing that differs between
+round; on the card those rounds replay as one CUDA graph (:class:`ClockLoop`,
+:func:`_run_clock`).  Demand evaluation is the only thing that differs between
 settlement paths: the plain folds here, or the kernels in
 :mod:`repro_torch.kernels.ops`.  Multi-device settlement is not ported yet.
 
@@ -227,43 +228,65 @@ def _apply_tie_jitter(pi: torch.Tensor, config: ClockConfig) -> torch.Tensor:
     return ref.fma(torch.sign(pi) * jitter, torch.abs(pi), pi)
 
 
-def _run_clock(
-    excess: Callable[[torch.Tensor], torch.Tensor],
-    start_prices: torch.Tensor,
-    config: ClockConfig,
-    c: torch.Tensor,
-    s: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Algorithm 1's price loop (plus the λ-bisection refiner) → (rounds, p*).
+class ClockLoop:
+    """Algorithm 1's price loop over static state tensors.
 
-    Round for round the reference's loop body: each round runs only while
-    not done and below ``max_rounds``, and a round that finds z ≤ tol keeps
-    its prices.  Rounds are issued in chunks of :data:`CHECK_EVERY`; a round
-    issued after the loop has stopped changes nothing.
+    The loop state — round count ``t``, prices ``p``, previous prices
+    ``p_prev``, the done flag and, with ``config.adaptive``, the step
+    accelerator, the cap fractions and the last excess signs — lives in
+    tensors allocated once; :meth:`reset` loads a start point and
+    :meth:`chunk` runs :data:`CHECK_EVERY` rounds in place.  Round for round
+    it is the reference's loop body: a round runs only while not done and
+    below ``max_rounds``, and a round that finds z ≤ tol keeps its prices,
+    so a round issued after the loop has stopped changes nothing.  Because
+    a chunk reads and writes only those tensors (and what ``excess`` reads),
+    one chunk can be captured as a CUDA graph and replayed.
     """
-    dev = start_prices.device
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-    alpha, delta = f32(config.alpha), f32(config.delta)
-    eps, tol, floor = f32(config.price_floor_frac), f32(config.tol), f32(config.step_floor_frac)
-    max_rounds = config.max_rounds
 
-    t = torch.zeros((), dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    p = start_prices.float().clone()
-    p_prev = p.clone()
-    adaptive = config.adaptive
-    if adaptive:
-        growth, decay = f32(config.alpha_growth), f32(config.delta_decay)
-        accel_cap = f32(config.accel_cap)
-        dfloor = f32(config.delta_floor_frac) * delta
-        accel = torch.ones_like(p)
-        dcap = torch.full_like(p, float(delta))
-        prev_pos = torch.zeros(p.shape, dtype=torch.bool, device=dev)
+    def __init__(self, excess, config: ClockConfig, c: torch.Tensor, s: torch.Tensor):
+        dev = c.device
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+        self.excess, self.config, self.c, self.s = excess, config, c, s
+        self.alpha, self.delta = f32(config.alpha), f32(config.delta)
+        self.eps, self.tol = f32(config.price_floor_frac), f32(config.tol)
+        self.floor = f32(config.step_floor_frac)
+        n = c.shape[0]
+        self.t = torch.zeros((), dtype=torch.int32, device=dev)
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.p = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.p_prev = torch.zeros_like(self.p)
+        if config.adaptive:
+            self.growth, self.decay = f32(config.alpha_growth), f32(config.delta_decay)
+            self.accel_cap = f32(config.accel_cap)
+            self.dfloor = f32(config.delta_floor_frac) * self.delta
+            self.accel = torch.ones_like(self.p)
+            self.dcap = torch.full_like(self.p, float(self.delta))
+            self.prev_pos = torch.zeros(n, dtype=torch.bool, device=dev)
 
-    while True:
+    def reset(self, start: torch.Tensor) -> None:
+        self.t.zero_()
+        self.done.fill_(False)
+        self.p.copy_(start)
+        self.p_prev.copy_(start)
+        if self.config.adaptive:
+            self.accel.fill_(1.0)
+            self.dcap.fill_(float(self.delta))
+            self.prev_pos.fill_(False)
+
+    def running(self) -> bool:
+        """Host read: is the loop still going?"""
+        return bool(~self.done & (self.t < self.config.max_rounds))
+
+    def chunk(self) -> None:
+        alpha, delta, eps, tol, floor = self.alpha, self.delta, self.eps, self.tol, self.floor
+        c, s, max_rounds = self.c, self.s, self.config.max_rounds
+        adaptive = self.config.adaptive
+        t, done, p, p_prev = self.t, self.done, self.p, self.p_prev
+        if adaptive:
+            accel, dcap, prev_pos = self.accel, self.dcap, self.prev_pos
         for _ in range(CHECK_EVERY):
             run = ~done & (t < max_rounds)
-            z = excess(p)
+            z = self.excess(p)
             d = (z <= tol).all()
             pos = z > tol
             rel = torch.maximum(alpha * torch.clamp_min(z, 0.0) / s, floor)
@@ -276,8 +299,10 @@ def _run_clock(
             p_body = torch.where(d, p, p_next)
             pprev_body = torch.where(d, p_prev, p)
             if adaptive:
-                accel_n = torch.where(pos & prev_pos, torch.minimum(accel * growth, accel_cap), 1.0)
-                dcap_n = torch.where(prev_pos & ~pos, torch.maximum(dcap * decay, dfloor), dcap)
+                accel_n = torch.where(pos & prev_pos, torch.minimum(accel * self.growth,
+                                                                    self.accel_cap), 1.0)
+                dcap_n = torch.where(prev_pos & ~pos, torch.maximum(dcap * self.decay,
+                                                                    self.dfloor), dcap)
                 accel = torch.where(run, accel_n, accel)
                 dcap = torch.where(run, dcap_n, dcap)
                 prev_pos = torch.where(run, pos, prev_pos)
@@ -285,21 +310,59 @@ def _run_clock(
             p_prev = torch.where(run, pprev_body, p_prev)
             done = torch.where(run, d, done)
             t = t + run.to(torch.int32)
-        if not bool(~done & (t < max_rounds)):
-            break
+        self.t.copy_(t)
+        self.done.copy_(done)
+        self.p.copy_(p)
+        self.p_prev.copy_(p_prev)
+        if adaptive:
+            self.accel.copy_(accel)
+            self.dcap.copy_(dcap)
+            self.prev_pos.copy_(prev_pos)
 
-    prices = p
-    if config.refine_rounds > 0:
-        # λ-bisection on the last segment: λ=1 clears, λ=0 is the last
-        # infeasible point; find the smallest clearing λ
+    def prices(self) -> torch.Tensor:
+        """The loop's prices, then the λ-bisection refiner (eager) on the
+        last segment: λ=1 clears, λ=0 is the last infeasible point; it finds
+        the smallest clearing λ.  A new tensor, never the loop's own."""
+        p, p_prev = self.p, self.p_prev
+        if self.config.refine_rounds <= 0:
+            return p.clone()
         delta_p = p - p_prev
-        lo, hi = f32(0.0), f32(1.0)
-        for _ in range(config.refine_rounds):
+        lo = torch.zeros((), dtype=torch.float32, device=p.device)
+        hi = torch.ones((), dtype=torch.float32, device=p.device)
+        for _ in range(self.config.refine_rounds):
             mid = 0.5 * (lo + hi)
-            ok = (excess(ref.fma(mid.expand_as(delta_p), delta_p, p_prev)) <= tol).all()
+            ok = (self.excess(ref.fma(mid.expand_as(delta_p), delta_p, p_prev)) <= self.tol).all()
             lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
-        prices = ref.fma(hi.expand_as(delta_p), delta_p, p_prev)
-    return t, prices
+        return ref.fma(hi.expand_as(delta_p), delta_p, p_prev)
+
+
+def _run_clock(
+    excess: Callable[[torch.Tensor], torch.Tensor],
+    start_prices: torch.Tensor,
+    config: ClockConfig,
+    c: torch.Tensor,
+    s: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 1's price loop (plus the λ-bisection refiner) → (rounds, p*).
+
+    Rounds are issued in chunks of :data:`CHECK_EVERY` (:class:`ClockLoop`),
+    with one host read of the done flag a chunk.  The first chunk runs
+    eagerly.  On the card a clock that outlives it captures one chunk as a
+    CUDA graph, kernel launches inside, and replays it until done; on the
+    CPU the same chunk runs eagerly, as the caller asked for the CPU.
+    """
+    loop = ClockLoop(excess, config, c, s)
+    loop.reset(start_prices.float())
+    loop.chunk()
+    if loop.running():
+        if start_prices.device.type == "cuda":
+            graph = ops.CountedGraph(loop.chunk, warmup=False)
+            while loop.running():
+                graph.replay()
+        else:
+            while loop.running():
+                loop.chunk()
+    return loop.t, loop.prices()
 
 
 def _sparse_settle(idx, val, prices, chosen, active, num_resources: int, exact: bool):

@@ -15,8 +15,14 @@ economy given the same state settle the same epochs: prices, reserves,
 chosen bundles, rounds, migrations, convergence and SYSTEM feasibility bit
 for bit, payment-derived stats to float tolerance.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-slice): the fused epoch program, the per-agent loop packer, and the
+``fused=True`` runs the whole epoch — pack, clock, settle, verify, surplus,
+apply — on the device over device-resident state (:mod:`.fused`: CUDA
+graphs on the card), and ``pipeline=True`` overlaps one epoch's host stats
+with the next epoch's device work in :meth:`Economy.run_horizon`.
+``packer="loop"`` packs and applies with the reference's per-agent loops
+(the parity oracle of the vectorized packer).
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item): the
 always-on service bridge.  Settlement runs on one device.
 """
 from __future__ import annotations
@@ -36,6 +42,7 @@ from .auction import (
     verify_system,
 )
 from .faults import FaultDraw, FaultModel
+from .fused import DeviceMarketState, build_fused_epoch
 from .policies import BidderPolicy, Observation
 from .reserve import (
     DEFAULT_WEIGHTING,
@@ -49,7 +56,13 @@ from .types import (
     as_device,
     bundle_cluster_costs,
     csr_problem_from_arrays,
+    pack_bids_sparse,
 )
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of a tensor (waits for the device)."""
+    return t.cpu().numpy().copy()
 
 
 @dataclasses.dataclass
@@ -232,6 +245,25 @@ class AgentPopulation:
         return AgentPopulation(names=names, **kw)
 
 
+def _claw_to_capacity_loop(
+    placed: np.ndarray,
+    req: np.ndarray,
+    usage: np.ndarray,
+    cap_eff: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-agent reference for :func:`_claw_to_capacity` (parity oracle)."""
+    usage = usage.copy()
+    evict = np.zeros(placed.shape[0], bool)
+    for c in np.flatnonzero((usage > cap_eff + 1e-9).any(axis=1)):
+        for a in np.flatnonzero(placed == c)[::-1]:
+            if not np.any(usage[c] > cap_eff[c] + 1e-9):
+                break
+            usage[c] = np.maximum(usage[c] - req[a], 0.0)
+            evict[a] = True
+        usage[c] = np.minimum(usage[c], cap_eff[c])
+    return evict, usage
+
+
 def _claw_to_capacity(
     placed: np.ndarray,
     req: np.ndarray,
@@ -378,17 +410,14 @@ class Economy:
         ration_fallback: bool = False,
         reliability_discount: float = 1.0,
         fused: bool = False,
+        pipeline: bool = False,
+        fused_backend: str | None = None,
+        fused_slack: bool = False,
         device: str | torch.device = "cuda",
     ):
-        if fused:
-            raise NotImplementedError(
-                "fused=True: the fused epoch program is ROADMAP queue 1, slice 2"
-            )
-        if packer != "vectorized":
-            raise NotImplementedError(
-                f"packer={packer!r}: only the vectorized packer is ported; the "
-                "per-agent loop packer comes with ROADMAP queue 1, slice 2"
-            )
+        if packer not in ("vectorized", "loop"):
+            raise ValueError(f"packer must be 'vectorized' or 'loop', got {packer!r}")
+        self.packer = packer
         self.device = as_device(device)
         self.clusters = list(clusters)
         self.rtypes = list(rtypes)
@@ -404,8 +433,8 @@ class Economy:
         # Settlement demand: z is a fixed left fold over settle_blocks
         # contiguous user blocks (the partials-mode kernel on the card, its
         # plain version on the CPU), bit-identical to the reference's
-        # blocked proxy.  One device, always: multi-GPU settlement is a
-        # later slice.
+        # blocked proxy.  One device, always: multi-GPU settlement is ROADMAP
+        # queue 1, item "Multi-GPU settlement".
         self.settle_blocks = settle_blocks
         self.demand_fn = ops.blocked_bid_demand_fn(settle_blocks)
         # Warm starts: seed each clock with max(p_prev, reserve) instead of
@@ -460,6 +489,44 @@ class Economy:
         self.pool_reliability = np.ones(self.R, np.float64)
         # effective capacity the last binding epoch settled against
         self._last_cap_eff: np.ndarray | None = None
+        # Fused epochs: pack → clock → settle → verify → apply on the device
+        # over device-resident market state (see .fused); the staged path
+        # stays the parity oracle.  pipeline=True overlaps epoch t's host
+        # stats with epoch t+1's device work inside run_horizon.
+        if pipeline and not fused:
+            raise ValueError("pipeline=True requires fused=True")
+        if pipeline and (self.policies is not None or self.faults is not None):
+            raise ValueError(
+                "pipeline=True requires policies=None and faults=None: both mutate host state "
+                "the next epoch's inputs depend on, which would serialize the pipeline anyway"
+            )
+        if fused and packer != "vectorized":
+            raise ValueError(
+                "fused=True requires packer='vectorized' (the loop packer is a host-side "
+                "oracle; it has no device twin)"
+            )
+        if fused and clock.break_ties:
+            raise ValueError(
+                "fused=True does not support clock.break_ties (the tie jitter is indexed by "
+                "global row position, which the fused slot layout does not preserve)"
+            )
+        if fused_slack and not fused:
+            raise ValueError("fused_slack=True requires fused=True")
+        if fused:
+            ops.fused_epoch_z_fn(fused_backend, self.R)  # rejects unknown backends now
+        self.fused = bool(fused)
+        self.pipeline = bool(pipeline)
+        self.fused_backend = fused_backend
+        # fused_slack pads the program's agent axis to a power-of-two capacity
+        # that only grows (by doubling), so bounded churn keeps one program;
+        # dead slots are neutral in allocations but shift the padded folds,
+        # so slack epochs are float-close, not bit-exact, to the staged path
+        self.fused_slack = bool(fused_slack)
+        self._fused_fn = None
+        self._fused_n: int | None = None  # agent capacity of the built program
+        self._device_state: DeviceMarketState | None = None
+        self._device_const: tuple | None = None
+        self._state_dirty = True
         # streaming-churn telemetry, reported in the next EpochStats
         self._churn_arrivals_rejected = 0
         self._churn_arrival_units_rejected = 0.0
@@ -516,6 +583,7 @@ class Economy:
             self._reach_keys = np.vstack(
                 [self._reach_keys, np.full((len(newcomers), self.C), np.nan)]
             )
+        self._state_dirty = True
         return accepted
 
     def remove_agents(self, mask: np.ndarray) -> int:
@@ -538,6 +606,7 @@ class Economy:
         self.pop = self.pop.select(~mask)
         if self._reach_keys is not None:
             self._reach_keys = self._reach_keys[~mask]
+        self._state_dirty = True
         return int(held.sum())
 
     def _consume_churn_counters(self, dry_run: bool) -> tuple[int, float, float]:
@@ -559,12 +628,12 @@ class Economy:
     # -- always-on service bridge ---------------------------------------------
     def export_bid_rows(self, agents: np.ndarray | None = None):
         raise NotImplementedError(
-            "export_bid_rows: the service bridge is ROADMAP queue 1, slice 3"
+            "export_bid_rows: the service bridge is ROADMAP queue 1, item \"The service\""
         )
 
     def drain_bid_deltas(self):
         raise NotImplementedError(
-            "drain_bid_deltas: the service bridge is ROADMAP queue 1, slice 3"
+            "drain_bid_deltas: the service bridge is ROADMAP queue 1, item \"The service\""
         )
 
     # -- pool bookkeeping ----------------------------------------------------
@@ -1027,6 +1096,120 @@ class Economy:
             bundle_cluster=bundle_cluster,
         )
 
+    def _pack_bids_loop(
+        self,
+        psi_flat: np.ndarray,
+        tilde_p: np.ndarray,
+        base_cost_flat: np.ndarray,
+        u_arb: np.ndarray,
+        perm_keys: np.ndarray,
+        pi_scale: np.ndarray | None = None,
+        arbitrage: np.ndarray | None = None,
+        margin: np.ndarray | None = None,
+        dropout: np.ndarray | None = None,
+        placed_override: np.ndarray | None = None,
+        free: np.ndarray | None = None,
+    ) -> BidBook:
+        """The reference's per-agent packer (the pre-vectorization path), kept
+        as the parity oracle: it consumes the same pre-drawn randomness and
+        packs the same rows, bundles and prices as
+        :meth:`_pack_bids_vectorized`, into the K-padded encoding.  O(N)
+        Python — tests and small economies only."""
+        pop = self.pop
+        T, C = self.T, self.C
+        t_arange = np.arange(T)
+        arb = pop.arbitrage if arbitrage is None else arbitrage
+        believed = bundle_cluster_costs(pop.req, self.belief)
+        margins = pop.margins() if margin is None else margin
+        sparse_rows: list[list[tuple[np.ndarray, np.ndarray]]] = []
+        pi_rows: list[np.ndarray] = []
+        kinds: list[tuple] = []  # (agent_idx, kind, cluster list)
+
+        placed_arr = pop.placed if placed_override is None else placed_override
+        if free is None:
+            free = np.maximum(self.capacity - self.usage, 0.0).reshape(-1)
+        for r in range(self.R):
+            if free[r] <= 1e-9:
+                continue
+            sparse_rows.append([(np.array([r], np.int32), np.array([-free[r]], np.float32))])
+            pi_rows.append(np.array([-free[r] * float(tilde_p[r])], np.float32))
+            kinds.append((-1, "op", [r // T]))
+
+        max_b = 1
+        for i in range(len(pop)):
+            if dropout is not None and dropout[i]:
+                continue  # bid-stream dropout: nothing submitted this epoch
+            placed_i, home_i = int(placed_arr[i]), int(pop.home[i])
+            req_i = pop.req[i]
+            wants_placement = placed_i < 0
+            sells = (
+                placed_i >= 0
+                and arb[i] > 0
+                and u_arb[i] < arb[i]
+                and psi_flat[self.pool_idx(placed_i, 0)] > 0.75
+            )
+            if sells:
+                # trader: offer holdings at home, seek to re-buy elsewhere
+                exp_rev = float(believed[i, placed_i])
+                sparse_rows.append([((placed_i * T + t_arange).astype(np.int32),
+                                     (-req_i).astype(np.float32))])
+                pi_rows.append(np.array([-exp_rev * (1.0 - 0.15)], np.float32))
+                kinds.append((i, "sell", [placed_i]))
+                wants_placement = True  # now needs a new home
+            if not wants_placement:
+                continue
+            n_reach = min(max(1, int(round(float(pop.mobility[i]) * C))), C)
+            order = np.argsort(perm_keys[i], kind="stable")
+            reach = sorted(order[:n_reach].tolist(), key=lambda c: 0 if c == home_i else 1)
+            if home_i >= 0 and home_i not in reach:
+                reach = [home_i] + reach[: max(0, n_reach - 1)]
+            bundles, pis = [], []
+            for c in reach:
+                believed_c = float(believed[i, c])
+                raw_value = float(pop.value[i]) - (
+                    float(pop.relocation_cost[i]) if c != home_i else 0.0
+                )
+                # bid: value capped by belief·(1+margin) — early epochs bid
+                # near private value (wild), later epochs track the market
+                pi = min(raw_value, believed_c * (1.0 + float(margins[i])),
+                         float(pop.budget[i]))
+                if pi_scale is not None:
+                    pi = pi * float(pi_scale[i])
+                bundles.append(((c * T + t_arange).astype(np.int32), req_i.astype(np.float32)))
+                pis.append(pi)
+            sparse_rows.append(bundles)
+            pi_rows.append(np.asarray(pis, np.float32))
+            kinds.append((i, "buy", reach))
+            max_b = max(max_b, len(bundles))
+
+        U = len(sparse_rows)
+        max_b = max(max_b, max(len(b) for b in sparse_rows))
+        pi_mat = np.full((U, max_b), -np.inf, np.float32)
+        for u, pis_u in enumerate(pi_rows):
+            pi_mat[u, : len(pis_u)] = pis_u
+
+        problem = pack_bids_sparse(sparse_rows, pi_mat, base_cost=base_cost_flat,
+                                   k_max=max(T, 1), device=self.device)
+        row_kind = np.full((U,), KIND_BUY, np.int8)
+        row_agent = np.full((U,), -1, np.int64)
+        sell_cluster = np.full((U,), -1, np.int64)
+        bundle_cluster = np.full((U, max_b), -1, np.int64)
+        for u, (aidx, kind, cluster_list) in enumerate(kinds):
+            if kind == "op":
+                row_kind[u] = KIND_OP
+            elif kind == "sell":
+                row_kind[u] = KIND_SELL
+                row_agent[u] = aidx
+                sell_cluster[u] = cluster_list[0]
+            else:
+                row_agent[u] = aidx
+                bundle_cluster[u, : len(cluster_list)] = cluster_list
+        return BidBook(
+            problem=problem, pi_mat=pi_mat, row_kind=row_kind,
+            row_agent=row_agent, sell_cluster=sell_cluster,
+            bundle_cluster=bundle_cluster,
+        )
+
     def _draw_and_pack(
         self,
         psi_flat: np.ndarray,
@@ -1042,7 +1225,8 @@ class Economy:
         perm_keys, pi_scale, arb, margin = self._apply_policies(
             perm_keys, dry_run
         )
-        return self._pack_bids_vectorized(
+        pack = self._pack_bids_vectorized if self.packer == "vectorized" else self._pack_bids_loop
+        return pack(
             psi_flat, tilde_p, base_cost_flat, u_arb, perm_keys,
             pi_scale=pi_scale, arbitrage=arb, margin=margin,
             dropout=dropout, placed_override=placed_override, free=free,
@@ -1092,13 +1276,14 @@ class Economy:
         following binding ``run_epoch`` draws the identical bid book and
         settles to bit-identical prices.
         """
+        settle = self._settle_epoch_fused if self.fused else self._settle_epoch
         if dry_run:
             rng_state = self.rng.bit_generator.state
             try:
-                return self._settle_epoch(dry_run=True)
+                return settle(dry_run=True)
             finally:
                 self.rng.bit_generator.state = rng_state
-        return self._settle_epoch(dry_run=False)
+        return settle(dry_run=False)
 
     def _warm_seed(self, tilde_p: np.ndarray) -> np.ndarray:
         """Next clock's starting prices under warm starts.
@@ -1223,7 +1408,9 @@ class Economy:
         # winning buys are scaled to fit the surviving capacity instead of
         # being silently clipped pool-wise
         ration = self.ration_fallback and not converged
-        stats = self._apply_settlement(book, result, cap=cap_eff, ration=ration)
+        apply = (self._apply_settlement if self.packer == "vectorized"
+                 else self._apply_settlement_loop)
+        stats = apply(book, result, cap=cap_eff, ration=ration)
 
         post = {
             "seller_failures": 0, "failed_pools": 0,
@@ -1288,9 +1475,402 @@ class Economy:
         """Host prices → float32 tensor on the economy's device."""
         return torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
 
+    # -- fused epoch path (.fused) --------------------------------------------
+    def invalidate_device_state(self) -> None:
+        """Force the fused path to upload the host mirrors again next epoch.
+
+        The fused path keeps market state on the device; the mutation sites
+        it knows about (arrivals, departures, fault clawbacks) mark it dirty
+        themselves.  Call this after mutating ``pop`` / ``usage`` /
+        ``belief`` directly from outside the Economy API."""
+        self._state_dirty = True
+
+    def sync_host_mirrors(self) -> None:
+        """Bring the device state back into the host mirrors (``pop.placed``,
+        ``pop.home``, ``pop.fill_rate``, ``usage``, ``belief``).  Every
+        binding fused epoch already adopts its outputs; a state tree taken
+        from a fused economy calls this first all the same, so it reads what
+        the device holds.  A dirty device state is stale, and is left."""
+        st = self._device_state
+        if st is None or self._state_dirty:
+            return
+        n = len(self.pop)
+        self.pop.placed = _host(st.placed)[:n]
+        self.pop.home = _host(st.home)[:n]
+        self.pop.fill_rate = _host(st.fill_rate)[:n]
+        self.usage = _host(st.usage)
+        self.belief = _host(st.belief)
+
+    def _fused_cap(self) -> int:
+        """Agent capacity the fused program is (or should be) built for:
+        ``len(pop)``, or with ``fused_slack`` a power of two that only grows
+        (by doubling), so arrivals within the slack and any departure keep
+        the built program; dead slots ride along neutral in allocations
+        (their presence is zeroed through dropout)."""
+        n = len(self.pop)
+        if not self.fused_slack:
+            return n
+        cap = self._fused_n if self._fused_n is not None else 0
+        if cap >= n:
+            return cap
+        cap = max(cap, 16)
+        while cap < n:
+            cap *= 2
+        return cap
+
+    def _fused_program(self):
+        n = self._fused_cap()
+        if self._fused_fn is None or self._fused_n != n:
+            self._fused_fn = build_fused_epoch(
+                num_agents=n, num_clusters=self.C, num_rtypes=self.T,
+                clock=self.clock, clock_retries=self.clock_retries,
+                ration_fallback=self.ration_fallback, settle_blocks=self.settle_blocks,
+                backend=self.fused_backend,
+            )
+            self._fused_n = n
+            self._state_dirty = True
+            self._device_const = None
+        return self._fused_fn
+
+    def _pad_agents(self, a: np.ndarray, fill) -> np.ndarray:
+        """Pad a per-agent array's leading axis to the built fused capacity
+        (no-op without slack, or when the population fills the capacity)."""
+        cap = self._fused_n if self._fused_n is not None else len(self.pop)
+        n = a.shape[0]
+        if n == cap:
+            return a
+        pad = np.full((cap - n,) + a.shape[1:], fill, dtype=a.dtype)
+        return np.concatenate([a, pad], axis=0)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A copy of a host array on the economy's device (never a view: the
+        fused program updates its state tensors in place)."""
+        return torch.from_numpy(np.array(a)).to(self.device)
+
+    def _fused_const(self) -> tuple:
+        if self._device_const is None or self._state_dirty:
+            pop = self.pop
+            self._device_const = tuple(
+                self._upload(self._pad_agents(np.asarray(a), 0))
+                for a in (pop.req, pop.value, pop.relocation_cost, pop.mobility, pop.budget)
+            )
+        return self._device_const
+
+    def _fused_state(self) -> DeviceMarketState:
+        if self._device_state is None or self._state_dirty:
+            self._fused_const()  # refresh the immutables alongside
+            self._device_state = DeviceMarketState.from_host(
+                self.pop, self.usage, self.belief, capacity=self._fused_n, device=self.device
+            )
+            self._state_dirty = False
+        return self._device_state
+
+    def _fused_prepare(self, dry_run: bool) -> dict:
+        """Host half of a fused epoch: faults view and pre-claw commit,
+        reserve curve, warm seed, epoch randomness, policy overlays —
+        everything the device program consumes, with neutral defaults for
+        every overlay, so every epoch runs the same stages."""
+        pop = self.pop
+        n, C, T = len(pop), self.C, self.T
+        churn = self._consume_churn_counters(dry_run)
+        draw, cap_eff, usage_eff, placed_ov, pre_evict, pre_claw, pre_comp = (
+            self._epoch_view()
+        )
+        if not dry_run and pre_evict is not None:
+            self.pop.placed[pre_evict] = -1
+            self.usage = usage_eff
+            self._state_dirty = True
+        psi_flat = (
+            np.clip(usage_eff / np.maximum(cap_eff, 1e-9), 0.0, 1.0)
+            .reshape(-1)
+            .copy()
+        )
+        if draw is None:
+            tilde_p = reserve_prices(self.pools(), self.weighting)
+            free_basis = self.capacity
+        else:
+            tilde_p = reputation_weighted_reserve(
+                self._pools_from(cap_eff, usage_eff),
+                self.weighting,
+                reliability=self.pool_reliability,
+                discount=self.reliability_discount,
+            )
+            free_basis = cap_eff
+        base_cost_flat = np.tile(self.base_cost_rt, C).astype(np.float32)
+        warm = self.warm_start and bool(self.price_history)
+        start = (
+            self._warm_seed(np.asarray(tilde_p)) if warm else np.asarray(tilde_p)
+        ).astype(np.float32)
+
+        u_arb, perm_keys = self._draw_bid_randomness()
+        perm_keys, pi_scale, arb, margin = self._apply_policies(perm_keys, dry_run)
+        if pi_scale is None:
+            pi_scale = np.ones(n, np.float64)
+        if arb is None:
+            arb = pop.arbitrage
+        if margin is None:
+            margin = pop.margins()
+        dropout = (
+            np.zeros(n, bool)
+            if draw is None or draw.dropout is None
+            else np.asarray(draw.dropout, bool)
+        )
+        dropped = 0 if draw is None or draw.dropout is None else int(draw.dropout.sum())
+
+        # host twin of the device's presence masks: the staged empty-book
+        # guard, plus the bid counts pct_settled needs
+        placed_eff = placed_ov if (dry_run and placed_ov is not None) else pop.placed
+        free_host = np.maximum(free_basis - usage_eff, 0.0).reshape(-1)
+        psi_home0 = psi_flat[np.clip(placed_eff, 0, C - 1) * T]
+        sells = ((placed_eff >= 0) & (arb > 0) & (u_arb < arb) & (psi_home0 > 0.75)) & ~dropout
+        wants = ((placed_eff < 0) | sells) & ~dropout
+        n_op = int((free_host > 1e-9).sum())
+        if n_op + int(sells.sum()) + int(wants.sum()) == 0:
+            raise RuntimeError("empty bid book: no operator supply and no bidding agents")
+
+        return {
+            "draw": draw, "cap_eff": cap_eff, "usage_eff": usage_eff,
+            "free_basis": free_basis, "psi_flat": psi_flat,
+            "tilde_p": np.asarray(tilde_p), "base_cost_flat": base_cost_flat,
+            "start": start, "warm": warm, "dropped": dropped,
+            "pre_evict": pre_evict, "pre_claw": pre_claw, "pre_comp": pre_comp,
+            "epoch_index": len(self.price_history),
+            "u_arb": u_arb, "perm_keys": perm_keys, "pi_scale": pi_scale,
+            "arb": arb, "margin": margin, "dropout": dropout,
+            "sells": sells, "wants": wants, "placed_eff": placed_eff,
+            "home_pre": pop.home, "churn": churn,
+            "util_pct": None if dry_run else self._util_percentiles(),
+        }
+
+    # per-agent fused inputs and their slack-slot fill values: dropout=True
+    # zeroes a dead slot's presence, u_arb=1 ≥ arb=0 keeps the sell coin
+    # from firing, and the rest are neutral under ~present
+    _FUSED_AGENT_INPUTS = (
+        ("u_arb", 1.0), ("perm_keys", 0.5), ("pi_scale", 1.0),
+        ("arb", 0.0), ("margin", 0.0), ("dropout", True),
+    )
+    # per-agent fused outputs, sliced back to the live population under slack
+    _FUSED_AGENT_OUTPUTS = (
+        "sells", "wants", "won_sell", "won_buy", "pay_sell", "pay_buy",
+        "pi_sell", "pi_buy", "buy_cluster", "buy_scale",
+        "placed_new", "home_new", "fill_new",
+    )
+
+    def _fused_dispatch(self, prep: dict, dry_run: bool) -> dict:
+        """Upload the epoch's inputs and run the fused program.  On the card
+        it returns once the clock has settled, with the settle stage queued
+        behind it."""
+        fn = self._fused_program()
+        n = len(self.pop)
+        if dry_run:
+            # ephemeral state copies: the program updates them in place,
+            # the persistent device state and host mirrors are untouched
+            self._fused_const()
+            pad_i = np.full(max(self._fused_n - n, 0), -1, np.int64)
+            state = (
+                self._upload(np.concatenate([prep["placed_eff"], pad_i])),
+                self._upload(np.concatenate([self.pop.home, pad_i])),
+                self._upload(self._pad_agents(self.pop.fill_rate, 1.0)),
+                self._upload(prep["usage_eff"]),
+                self._upload(self.belief),
+            )
+        else:
+            state = self._fused_state()
+        inputs = tuple(
+            self._upload(self._pad_agents(np.asarray(prep[k]), fill))
+            for k, fill in self._FUSED_AGENT_INPUTS
+        ) + tuple(
+            self._upload(prep[k])
+            for k in ("cap_eff", "free_basis", "tilde_p", "start", "base_cost_flat")
+        )
+        out = fn(self._device_const, state, inputs)
+        if self._fused_n != n:
+            for k in self._FUSED_AGENT_OUTPUTS:
+                out[k] = out[k][:n]
+        return out
+
+    def _fused_adopt(self, prep: dict, out: dict) -> None:
+        """Sync the host mirrors from the epoch's outputs (waits for the
+        device): only what the next epoch's host half reads — mirrors, price
+        history, warm-seed staleness flags.  Stats assembly stays in
+        :meth:`_fused_finalize`, which in pipeline mode runs while the next
+        epoch is already on the device."""
+        prices = _host(out["prices"])
+        self.pop.placed = _host(out["placed_new"])
+        self.pop.home = _host(out["home_new"])
+        self.pop.fill_rate = _host(out["fill_new"])
+        self.usage = _host(out["usage_new"])
+        self.belief = _host(out["belief_new"])
+        self._last_cap_eff = prep["cap_eff"]
+        self.pop.epoch += 1
+        self.price_history.append(prices)
+        self._last_reserve = np.asarray(prep["tilde_p"])
+        won_buy = _host(out["won_buy"])
+        buy_agents = np.flatnonzero(won_buy)
+        bc = _host(out["buy_cluster"])[buy_agents]
+        filled = np.zeros(self.R, bool)
+        if bc.size:
+            pools = bc[:, None] * self.T + np.arange(self.T)[None, :]
+            filled[pools[self.pop.req[buy_agents] > 0]] = True
+        self._last_filled = filled
+        prep["prices"] = prices
+        prep["buy_agents"] = buy_agents
+        prep["bc"] = bc
+
+    def _fused_finalize(self, prep: dict, out: dict, dry_run: bool) -> EpochStats:
+        """Assemble EpochStats from the epoch's outputs and ``prep``.
+
+        Reads only ``prep`` and ``out`` (never live mirrors), so in pipeline
+        mode it can run after the next epoch has been dispatched and
+        adopted.  Premiums rebuild the staged row order — agent rows
+        ascending, sell row before buy row — so the order-dependent
+        ``np.mean`` fold matches the staged path."""
+        prices = prep.get("prices")
+        if prices is None:
+            prices = _host(out["prices"])
+        converged = bool(out["converged"])
+        sys_ok = bool(out["system_ok"])
+        rounds = int(out["rounds"])
+        escalations = int(out["escalations"])
+        surplus = float(out["surplus"])
+        trade = float(out["value_of_trade"])
+        draw, pre_evict = prep["draw"], prep["pre_evict"]
+        if dry_run:
+            return EpochStats(
+                epoch=prep["epoch_index"], prices=prices,
+                reserve=prep["tilde_p"], psi=prep["psi_flat"],
+                price_ratio=prices / prep["base_cost_flat"],
+                gamma_median=float("nan"), gamma_mean=float("nan"),
+                pct_settled=float("nan"),
+                buy_util_percentiles=np.empty(0), sell_util_percentiles=np.empty(0),
+                migrations=0, surplus=surplus, value_of_trade=trade,
+                rounds=rounds, converged=converged, system_ok=sys_ok, warm_started=prep["warm"],
+                degraded=bool(
+                    not converged
+                    or escalations
+                    or pre_evict is not None
+                    or (draw is not None and draw.capacity_scale is not None)
+                ),
+                clock_escalations=escalations, dropped_bids=prep["dropped"],
+                evictions=0 if pre_evict is None else int(pre_evict.sum()),
+                clawback_units=prep["pre_claw"], compensation=prep["pre_comp"],
+                arrivals_rejected=prep["churn"][0],
+                arrival_units_rejected=prep["churn"][1],
+                release_shortfall_units=prep["churn"][2],
+            )
+
+        won_sell, won_buy = _host(out["won_sell"]), _host(out["won_buy"])
+        pay_s = _host(out["pay_sell"]).astype(np.float64)
+        pay_b = _host(out["pay_buy"]).astype(np.float64)
+        pi_s = _host(out["pi_sell"]).astype(np.float64)
+        pi_b = _host(out["pi_buy"]).astype(np.float64)
+        pi_a = np.stack([pi_s, pi_b], axis=1).reshape(-1)
+        pay_a = np.stack([pay_s, pay_b], axis=1).reshape(-1)
+        won_a = np.stack([won_sell, won_buy], axis=1).reshape(-1)
+        g = won_a & (np.abs(pay_a) > 1e-9)
+        gammas = np.abs(pi_a[g] - pay_a[g]) / np.abs(pay_a[g])
+
+        sell_agents = np.flatnonzero(won_sell)
+        sc = prep["placed_eff"][sell_agents]
+        buy_agents, bc, home_pre = prep["buy_agents"], prep["bc"], prep["home_pre"]
+        migrations = int(((home_pre[buy_agents] >= 0) & (home_pre[buy_agents] != bc)).sum())
+        n_agent_bids = int(prep["sells"].sum() + prep["wants"].sum())
+        n_agent_wins = int(won_sell.sum() + won_buy.sum())
+        rationed = int(out["rationed_rows"])
+        util_pct = prep["util_pct"]
+
+        post = {
+            "seller_failures": 0, "failed_pools": 0,
+            "evictions": 0, "clawback_units": 0.0, "compensation": 0.0,
+        }
+        if draw is not None:
+            buy_scale = _host(out["buy_scale"])
+            post = self._post_settlement_faults(
+                draw, prep["cap_eff"],
+                {
+                    "sell_agents": sell_agents, "sell_clusters": sc,
+                    "buy_agents": buy_agents, "buy_clusters": bc,
+                    "buy_scale": buy_scale[buy_agents],
+                    "buy_payments": pay_b[buy_agents],
+                },
+            )
+            self._state_dirty = True  # the post-fault clawback mutated mirrors
+
+        evictions = (0 if pre_evict is None else int(pre_evict.sum())) + post["evictions"]
+        degraded = bool(
+            not converged
+            or escalations
+            or rationed
+            or evictions
+            or post["seller_failures"]
+            or post["failed_pools"]
+            or pre_evict is not None
+            or (draw is not None and draw.capacity_scale is not None)
+        )
+        return EpochStats(
+            epoch=prep["epoch_index"],
+            prices=prices,
+            reserve=prep["tilde_p"],
+            psi=prep["psi_flat"],
+            price_ratio=prices / prep["base_cost_flat"],
+            gamma_median=float(np.median(gammas)) if gammas.size else float("nan"),
+            gamma_mean=float(np.mean(gammas)) if gammas.size else float("nan"),
+            pct_settled=100.0 * n_agent_wins / max(n_agent_bids, 1),
+            buy_util_percentiles=util_pct[bc] if bc.size else np.empty(0),
+            sell_util_percentiles=util_pct[sc] if sc.size else np.empty(0),
+            migrations=migrations,
+            surplus=surplus,
+            value_of_trade=trade,
+            rounds=rounds,
+            converged=converged,
+            system_ok=sys_ok,
+            warm_started=prep["warm"],
+            degraded=degraded,
+            clock_escalations=escalations,
+            rationed_rows=rationed,
+            dropped_bids=prep["dropped"],
+            seller_failures=post["seller_failures"],
+            failed_pools=post["failed_pools"],
+            evictions=evictions,
+            clawback_units=prep["pre_claw"] + post["clawback_units"],
+            compensation=prep["pre_comp"] + post["compensation"],
+            arrivals_rejected=prep["churn"][0],
+            arrival_units_rejected=prep["churn"][1],
+            release_shortfall_units=prep["churn"][2],
+        )
+
+    def _settle_epoch_fused(self, dry_run: bool) -> EpochStats:
+        prep = self._fused_prepare(dry_run)
+        out = self._fused_dispatch(prep, dry_run)
+        if not dry_run:
+            self._fused_adopt(prep, out)
+        return self._fused_finalize(prep, out, dry_run)
+
     def run_horizon(self, num_epochs: int) -> list[EpochStats]:
-        """Run ``num_epochs`` binding epochs."""
-        return [self.run_epoch() for _ in range(num_epochs)]
+        """Run ``num_epochs`` binding epochs; with ``pipeline=True``, keep
+        one epoch in flight.
+
+        The pipelined loop dispatches epoch t+1 and only then assembles
+        epoch t's EpochStats, so the host's numpy work (premiums, utilization
+        percentiles) overlaps the device's settle stage of the next epoch.
+        Stats are bit-identical to sequential ``run_epoch`` calls — same
+        program, same inputs, only the host bookkeeping is reordered."""
+        if not self.pipeline:
+            return [self.run_epoch() for _ in range(num_epochs)]
+        stats: list[EpochStats] = []
+        pending: tuple[dict, dict] | None = None
+        for _ in range(num_epochs):
+            prep = self._fused_prepare(dry_run=False)
+            out = self._fused_dispatch(prep, dry_run=False)
+            if pending is not None:
+                # the previous epoch's stats overlap this epoch's device
+                # work; only adopt() below waits for the device
+                stats.append(self._fused_finalize(*pending, dry_run=False))
+            self._fused_adopt(prep, out)
+            pending = (prep, out)
+        if pending is not None:
+            stats.append(self._fused_finalize(*pending, dry_run=False))
+        return stats
 
     def _commit_usage(
         self,
@@ -1421,6 +2001,95 @@ class Economy:
             "buy_clusters": bc,
             "buy_scale": buy_scale,
             "buy_payments": pay64[buy_rows],
+        }
+
+    def _apply_settlement_loop(
+        self,
+        book: BidBook,
+        result,
+        cap: np.ndarray | None = None,
+        ration: bool = False,
+    ) -> dict:
+        """Per-agent reference of :meth:`_apply_settlement` (the loop
+        packer's apply).  Walks rows in order with scalar Python, but
+        accumulates the usage delta in the same three passes (trader
+        releases, buyer claims, movers' releases) as the vectorized apply,
+        so both give bit-identical EpochStats."""
+        pop = self.pop
+        if cap is None:
+            cap = self.capacity
+        won = result.won.cpu().numpy()
+        chosen = result.chosen_bundle.cpu().numpy()
+        payments = result.payments.cpu().numpy()
+        util_pct = self._util_percentiles()
+
+        gammas: list[float] = []
+        n_agent_bids = n_agent_wins = 0
+        sell_pairs: list[tuple[int, int]] = []  # (agent, cluster)
+        buy_pairs: list[tuple[int, int]] = []
+        buy_pays: list[float] = []
+        for u in range(book.num_rows):
+            kind = book.row_kind[u]
+            if kind == KIND_OP:
+                continue
+            n_agent_bids += 1
+            if kind == KIND_BUY:
+                a = int(book.row_agent[u])
+                pop.fill_rate[a] = (1.0 - FILL_EMA) * pop.fill_rate[a] + (
+                    FILL_EMA * float(won[u])
+                )
+            if not won[u]:
+                continue
+            n_agent_wins += 1
+            pay = float(payments[u])
+            pi_u = float(book.pi_mat[u, max(int(chosen[u]), 0)])
+            if abs(pay) > 1e-9:
+                gammas.append(abs(pi_u - pay) / abs(pay))
+            a = int(book.row_agent[u])
+            if kind == KIND_SELL:
+                sell_pairs.append((a, int(book.sell_cluster[u])))
+            else:
+                buy_pairs.append((a, int(book.bundle_cluster[u, int(chosen[u])])))
+                buy_pays.append(pay)
+
+        migrations = 0
+        for a, c in buy_pairs:
+            if pop.home[a] >= 0 and pop.home[a] != c:
+                migrations += 1
+        sell_agents = np.asarray([a for a, _ in sell_pairs], np.int64)
+        sc = np.asarray([c for _, c in sell_pairs], np.int64)
+        buy_agents = np.asarray([a for a, _ in buy_pairs], np.int64)
+        bc = np.asarray([c for _, c in buy_pairs], np.int64)
+        buy_scale, rationed = self._commit_usage(sell_agents, sc, buy_agents, bc, cap, ration)
+
+        for a, _ in sell_pairs:
+            pop.placed[a] = -1
+        for a, c in buy_pairs:
+            pop.placed[a] = c
+            pop.home[a] = c
+
+        filled = np.zeros(self.R, bool)
+        for a, c in buy_pairs:
+            for t in range(self.T):
+                if pop.req[a, t] > 0:
+                    filled[c * self.T + t] = True
+        self._last_filled = filled
+
+        g = np.asarray(gammas, np.float64)
+        return {
+            "gamma_median": float(np.median(g)) if g.size else float("nan"),
+            "gamma_mean": float(np.mean(g)) if g.size else float("nan"),
+            "pct_settled": 100.0 * n_agent_wins / max(n_agent_bids, 1),
+            "buy_util_pct": np.asarray([util_pct[c] for _, c in buy_pairs]),
+            "sell_util_pct": np.asarray([util_pct[c] for _, c in sell_pairs]),
+            "migrations": migrations,
+            "rationed_rows": rationed,
+            "sell_agents": sell_agents,
+            "sell_clusters": sc,
+            "buy_agents": buy_agents,
+            "buy_clusters": bc,
+            "buy_scale": buy_scale,
+            "buy_payments": np.asarray(buy_pays, np.float64),
         }
 
 

@@ -20,7 +20,11 @@ OPTIONAL = ("_last_reserve", "_last_filled", "_last_cap_eff", "_reach_keys")
 
 def economy_state(eco) -> tuple[dict[str, np.ndarray], dict]:
     """``(tree, rng_state)`` of an economy — this package's or any object
-    with the reference economy's attributes."""
+    with the reference economy's attributes.  A fused economy first brings
+    its device state back into the host mirrors the tree reads."""
+    sync = getattr(eco, "sync_host_mirrors", None)
+    if sync is not None:
+        sync()
     tree = {f"pop/{f}": np.asarray(getattr(eco.pop, f)) for f in _POP_FIELDS}
     tree.update(
         capacity=np.asarray(eco.capacity),
@@ -66,3 +70,4 @@ def load_economy_state(eco: Economy, tree: dict[str, np.ndarray], rng_state: dic
         setattr(eco, name, None if val is None else np.array(val))
     eco.rng = np.random.default_rng()
     eco.rng.bit_generator.state = rng_state
+    eco.invalidate_device_state()  # a fused economy uploads the loaded state

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("clock_bid_eval", "sparse_bid_eval", "sparse_bid_eval_csr", "wkv6")
+SOURCES = ("clock_bid_eval", "sparse_bid_eval", "sparse_bid_eval_csr", "wkv6", "ordered_scatter")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

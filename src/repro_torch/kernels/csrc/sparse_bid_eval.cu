@@ -538,8 +538,9 @@ partials_kernel(const int* __restrict__ idx, const float* __restrict__ val,
     }
     // one row a block over one-hot rows: XLA's reduce is the row itself,
     // whose one-hot sum drops its leading 0 +, so a row whose terms are all
-    // -0.0 on one pool keeps -0.0 there (ref.block_partials)
-    if (m == 1 && R <= kOneHotMaxR) {
+    // -0.0 on one pool keeps -0.0 there (ref.block_partials); a reduce that
+    // stands alone (vectorized < 0) reads its rows from +0
+    if (m == 1 && R <= kOneHotMaxR && vectorized >= 0) {
       bool negzero = true;
       for (int k = 0; k < K; ++k)
         negzero = negzero && ib[bhat * K + k] == ib[bhat * K] &&
@@ -554,7 +555,7 @@ partials_kernel(const int* __restrict__ idx, const float* __restrict__ val,
     __syncthreads();
     for (int r = t; r < R; r += blockDim.x) {
       const MergedRow x{s_sel_r, s_sel_x, L.kp, K, r};
-      partials[static_cast<size_t>(j) * R + r] = m == 1 ? x(0) : fold_whole(x, m, vectorized != 0);
+      partials[static_cast<size_t>(j) * R + r] = m == 1 ? x(0) : fold_whole(x, m, vectorized > 0);
     }
     return;
   }
@@ -662,7 +663,10 @@ int sparse_bid_eval_z(const int* idx, const float* val, const uint8_t* mask, con
 }
 
 // Partials mode: one launch for m <= 32 rows a block, else two (level 1,
-// then the later levels).  scratch holds the window levels of the fold (the
+// then the later levels).  vectorized: 1, the first level of 16..32 rows is
+// the 8-lane fold of a reduce fused with its one-hot rows; 0, left folds;
+// -1, left folds of a reduce that stands alone (a one-row block is its row
+// from +0, never -0.0).  scratch holds the window levels of the fold (the
 // sum over levels of num_blocks * ceil(n / 32) * R floats, n > 32 being each
 // level's input length, for m = ceil(U / num_blocks)); partials receives
 // (num_blocks, R).  Returns cudaGetLastError(), or cudaErrorInvalidValue for

@@ -7,15 +7,19 @@ on CUDA tensors too: it exists so a run on the card can hold the kernels
 against their plain versions, and nothing on the main path passes it.
 
 Each kernel entry point (``bid_eval``, ``sparse_bid_eval_z``,
-``sparse_bid_eval_partials``, ``sparse_bid_eval_csr_z``, ``wkv6``) counts its launches
-(:func:`launch_counts`, :func:`reset_launch_counts`), so a run can show that
-its main path went through the kernels.  Kernels run on PyTorch's current
-stream and do not synchronise; outputs and scratch are allocated here.
+``sparse_bid_eval_partials``, ``sparse_bid_eval_csr_z``, ``wkv6``,
+``ordered_scatter_add``) counts its launches (:func:`launch_counts`,
+:func:`reset_launch_counts`), so a run can show that its main path went
+through the kernels.  A launch recorded into a CUDA graph
+(:class:`CountedGraph`) is counted on every replay of the graph, not at the
+capture.  Kernels run on PyTorch's current stream and do not synchronise;
+outputs and scratch are allocated here.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from typing import NamedTuple
 
 import torch
@@ -35,10 +39,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
     ),
     ("wkv6", "wkv6"): (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    ("ordered_scatter", "ordered_scatter_add"): (_P, _P, _I, _I, _I, _P, _P),
 }
 
 
 _LAUNCHES = {fn: 0 for _, fn in _SIGNATURES}
+_CAPTURES = {"graphs": 0, "seconds": 0.0}  # CUDA graphs captured, and the host time it took
 # the partials kernel's user blocks are one grid dimension
 MAX_BLOCKS = 65535
 # wkv6 works in one tile a chunk: at most 32 tokens by 64 keys
@@ -298,16 +304,20 @@ def sparse_bid_eval(
     num_resources: int,
     num_blocks: int | None = None,
     *,
+    standalone_fold: bool = False,
     plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One clock round over the K-padded book → ``(z or partials, chosen)``.
 
     ``num_blocks=None``: z (R,) through float atomics (float-close).  An int:
     the deterministic (num_blocks, R) block partials, bit-identical to
-    :func:`.ref.block_partials`.  See :func:`.ref.sparse_bid_eval`.
+    :func:`.ref.block_partials`; ``standalone_fold`` fixes the fold form of
+    a block reduce that stands alone (the fused epoch's), which is otherwise
+    inferred from the book's shape.  See :func:`.ref.sparse_bid_eval`.
     """
     if idx.device.type == "cpu" or plain:
-        return ref.sparse_bid_eval(idx, val, mask, pi, prices, num_resources, num_blocks)
+        return ref.sparse_bid_eval(idx, val, mask, pi, prices, num_resources, num_blocks,
+                                   standalone_fold)
     if idx.device.type != "cuda":
         raise ValueError(f"sparse_bid_eval runs on CPU or CUDA tensors, got {idx.device}")
     _check_book(idx, val, mask, pi, prices, num_resources)
@@ -331,7 +341,8 @@ def sparse_bid_eval(
     scratch = torch.empty(_fold_windows(m) * num_blocks * num_resources,
                           dtype=torch.float32, device=dev)
     partials = torch.empty((num_blocks, num_resources), dtype=torch.float32, device=dev)
-    vectorized = int(m * num_blocks == u and num_resources <= ref.ONEHOT_ROWS_MAX_R)
+    vectorized = -1 if standalone_fold else int(
+        m * num_blocks == u and num_resources <= ref.ONEHOT_ROWS_MAX_R)
     _launch(
         "sparse_bid_eval", "sparse_bid_eval_partials",
         idx.data_ptr(), val.data_ptr(), mask.data_ptr(), pi.data_ptr(), pi_vector,
@@ -438,14 +449,110 @@ def wkv6(
     return o, s_out
 
 
+def _sort_dtype(n: int) -> torch.dtype:
+    """The narrowest integer type that holds targets 0..n (n: dropped rows)."""
+    return torch.uint8 if n < 256 else torch.int16 if n < 2**15 else torch.int32
+
+
+def ordered_scatter_add(
+    out: torch.Tensor, index: torch.Tensor, source: torch.Tensor, *, plain: bool = False
+) -> torch.Tensor:
+    """``out[index[e]] += source[e]`` row by row in operand order, in place
+    (np.add.at's order); rows whose index lies outside ``0 .. len(out) - 1``
+    are dropped.  float32 or float64 ``out`` of at most 8 columns a row.
+    Bit-identical to :func:`.ref.ordered_scatter_add`.
+
+    On the card the rows are sorted stably by target (PyTorch's radix sort,
+    deterministic), each target's first row found by a binary search of the
+    sorted targets, and the kernel folds each target's rows in order.
+    Nothing here synchronises, so a call records into a CUDA graph.
+    """
+    if out.device.type == "cpu" or plain:
+        return ref.ordered_scatter_add(out, index, source)
+    if out.device.type != "cuda":
+        raise ValueError(f"ordered_scatter_add runs on CPU or CUDA tensors, got {out.device}")
+    if out.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ordered_scatter_add: out in float32 or float64, got {out.dtype}")
+    n, e = out.shape[0], index.shape[0]
+    width = out[0].numel() if n else 1
+    dev = out.device
+    _check("out", out, out.dtype, tuple(out.shape), dev)
+    _check("index", index, index.dtype, (e,), dev)
+    if source.shape[0] != e or source.numel() != e * width or source.device != dev:
+        raise ValueError(f"ordered_scatter_add: source {tuple(source.shape)} for {e} rows of "
+                         f"{width} on {dev}, got {source.device}")
+    key = torch.where((index >= 0) & (index < n), index, n).to(_sort_dtype(n))
+    sorted_key, order = torch.sort(key, stable=True)  # the narrowest key: fewest radix passes
+    rows = source.reshape(e, width).to(out.dtype).index_select(0, order).contiguous()
+    targets = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    offsets = torch.searchsorted(sorted_key.int(), targets)  # int64: each target's first row
+    _launch(
+        "ordered_scatter", "ordered_scatter_add",
+        rows.data_ptr(), offsets.data_ptr(), n, width, int(out.dtype == torch.float64),
+        out.data_ptr(), _stream(dev),
+    )
+    return out
+
+
+class CountedGraph:
+    """A CUDA graph of ``fn()``, whose kernel launches count on every replay.
+
+    ``fn`` runs once on a side stream first when ``warmup`` (its launches
+    count: they run), then is captured on a side stream; the capture
+    launches nothing, so the launch counts are put back as they were and
+    the graph's own tally is added on each :meth:`replay`.  ``out`` holds
+    what ``fn`` returned during the capture: tensors every replay rewrites
+    in place.  The capture calls ``capture_begin``/``capture_end`` itself,
+    because the ``torch.cuda.graph`` context also runs the garbage collector
+    and empties the allocator's cache, which cost up to 0.75 s a capture on
+    an NVIDIA H100 80GB HBM3 at 700 W.  A capture or a replay that fails
+    raises.
+    """
+
+    def __init__(self, fn, warmup: bool = True):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        if warmup:
+            with torch.cuda.stream(side):
+                fn()
+        before = dict(_LAUNCHES)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                self.out = fn()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        _CAPTURES["graphs"] += 1
+        _CAPTURES["seconds"] += time.perf_counter() - t0
+        self.tally = {k: _LAUNCHES[k] - before[k] for k in _LAUNCHES}
+        _LAUNCHES.update(before)
+
+    def replay(self):
+        self.graph.replay()
+        for k, n in self.tally.items():
+            _LAUNCHES[k] += n
+        return self.out
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel entry point since the last reset."""
     return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
+    """Set every launch count, and the capture tally, to 0."""
     for fn in _LAUNCHES:
         _LAUNCHES[fn] = 0
+    _CAPTURES.update(graphs=0, seconds=0.0)
+
+
+def capture_stats() -> dict:
+    """CUDA graphs captured since the last reset, and the host seconds the
+    captures took (warm-up calls excluded)."""
+    return dict(_CAPTURES)
 
 
 # ---------------------------------------------------------------------------
@@ -515,3 +622,40 @@ def blocked_bid_demand_fn(num_blocks: int = 8, plain: bool = False):
     demand.exact_settlement = True  # type: ignore[attr-defined]
     demand.num_blocks = num_blocks  # type: ignore[attr-defined]
     return demand
+
+
+def settlement_demand_fn(exact: bool = True, num_blocks: int = 8, plain: bool = False):
+    """Demand fn for clock settlement (the reference's ``settlement_demand_fn``).
+
+    ``exact=True``: the partials-mode kernel and the fixed left fold over
+    ``num_blocks`` blocks (:func:`blocked_bid_demand_fn`), bit-identical to
+    the reference's blocked proxy — what ``Economy.run_epoch`` settles with.
+    ``exact=False``: the z-mode kernel (:func:`sparse_bid_demand_fn`), the
+    fast planet-scale path, float-close only.
+    """
+    if exact:
+        return blocked_bid_demand_fn(num_blocks, plain=plain)
+    return sparse_bid_demand_fn(plain=plain)
+
+
+def fused_epoch_z_fn(backend: str | None, num_resources: int, plain: bool = False):
+    """In-loop excess demand for the fused epoch (the reference's
+    ``fused_epoch_z_fn``).
+
+    ``None`` returns None: the fused program keeps its exact blocked fold,
+    which its bit parity rests on.  ``"z"`` returns ``z_fn(idx, val, mask,
+    pi, prices) -> z`` through the z-mode kernel for the price loop only:
+    selection, settlement and the convergence check stay exact, but the
+    price trajectory is only float-close.  The reference's TPU backends
+    (``"pallas"``, ``"interpret"``) have no meaning here.
+    """
+    if backend is None:
+        return None
+    if backend != "z":
+        raise ValueError(f"fused_backend {backend!r}: the port's only kernel backend for the "
+                         "fused epoch's in-loop z is 'z' (None keeps the exact blocked fold)")
+
+    def z_fn(idx, val, mask, pi, prices):
+        return sparse_bid_eval(idx, val, mask, pi, prices, num_resources, plain=plain)[0]
+
+    return z_fn

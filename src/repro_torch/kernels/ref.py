@@ -308,7 +308,8 @@ def user_rows(sel_idx: torch.Tensor, sel_val: torch.Tensor, num_resources: int) 
 
 
 def block_partials(
-    sel_idx: torch.Tensor, sel_val: torch.Tensor, num_resources: int, num_blocks: int
+    sel_idx: torch.Tensor, sel_val: torch.Tensor, num_resources: int, num_blocks: int,
+    standalone_fold: bool = False,
 ) -> torch.Tensor:
     """(num_blocks, R) partial demand over contiguous user blocks.
 
@@ -316,11 +317,15 @@ def block_partials(
     ``[j·m, (j+1)·m)`` and each (block, pool) column is reduced with XLA's
     fold (:func:`block_fold`) — bit-identical to the reference's
     ``_user_block_partials``.  With one row a block the partials are the
-    rows themselves.
+    rows themselves.  ``standalone_fold``: the reduce stands alone, as in the
+    reference's fused epoch, where the rows are scattered into a zero buffer
+    first — no vectorized first level, and a one-row block is its row from
+    +0.
     """
     x = user_rows(sel_idx, sel_val, num_resources)
     pad = -x.shape[0] % num_blocks
-    if x.shape[0] + pad == num_blocks and num_resources <= ONEHOT_ROWS_MAX_R:
+    if (x.shape[0] + pad == num_blocks and num_resources <= ONEHOT_ROWS_MAX_R
+            and not standalone_fold):
         # One row a block: XLA's reduce is the row itself, computed unfused,
         # where the one-hot sum drops its leading 0 +; a row whose terms are
         # all -0.0 on one pool keeps -0.0 there.
@@ -331,7 +336,8 @@ def block_partials(
     if x.shape[0] == num_blocks:
         return x
     cols = x.reshape(num_blocks, -1, num_resources).transpose(1, 2)  # (nb, R, m)
-    return block_fold(cols, vectorized=not pad and num_resources <= ONEHOT_ROWS_MAX_R)
+    vectorized = not pad and num_resources <= ONEHOT_ROWS_MAX_R and not standalone_fold
+    return block_fold(cols, vectorized=vectorized)
 
 
 def chain_sum(partials: torch.Tensor) -> torch.Tensor:
@@ -377,16 +383,19 @@ def sparse_bid_eval(
     prices: torch.Tensor,  # (R,) float32
     num_resources: int,
     num_blocks: int | None = None,
+    standalone_fold: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One clock round over the K-padded book → ``(z, chosen)``.
 
     ``num_blocks=None`` returns z (R,), the selected bundles scattered into
     one vector; an int returns the (num_blocks, R) block partials of
-    :func:`block_partials` instead (the deterministic settlement mode).
+    :func:`block_partials` instead (the deterministic settlement mode), in
+    the stand-alone fold form with ``standalone_fold``.
     """
     sel_idx, sel_val, chosen, _ = select_padded(idx, val, mask, pi, prices)
     if num_blocks is not None:
-        return block_partials(sel_idx, sel_val, num_resources, num_blocks), chosen
+        partials = block_partials(sel_idx, sel_val, num_resources, num_blocks, standalone_fold)
+        return partials, chosen
     z = torch.zeros(num_resources, dtype=torch.float32, device=idx.device)
     z.index_add_(0, sel_idx.reshape(-1).long(), sel_val.reshape(-1))
     return z, chosen
@@ -462,6 +471,23 @@ def sparse_bid_eval_csr(
         pos = torch.where(live, sel_start + k, 0).clamp(max=nnz - 1)
         z.index_add_(0, idx[pos].long(), torch.where(live, val[pos].float(), 0.0))
     return z, chosen
+
+
+def ordered_scatter_add(
+    out: torch.Tensor, index: torch.Tensor, source: torch.Tensor
+) -> torch.Tensor:
+    """``out[index[e]] += source[e]`` row by row in operand order, in place;
+    rows whose index lies outside ``0 .. len(out) - 1`` are dropped.
+
+    numpy's ``np.add.at`` and XLA's scatter on the CPU (the reference's
+    ``.at[].add``) add in this order.  The CPU's ``index_add_`` adds in it
+    too, so this version runs there: CUDA tensors make the round trip
+    through the host, since CUDA's ``index_add_`` adds with atomics.
+    """
+    keep = (index >= 0) & (index < out.shape[0])
+    host = out.cpu()
+    host.index_add_(0, index[keep].cpu(), source[keep].to(out.dtype).cpu())
+    return out.copy_(host) if out.device.type != "cpu" else out
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = """
 import json, sys
-import repro_torch, repro_torch.core, repro_torch.core.provisioner
+import repro_torch, repro_torch.core, repro_torch.core.provisioner, repro_torch.core.fused
 import repro_torch.kernels.ops, repro_torch.kernels.build
 import repro_torch.models, repro_torch.models.convert, repro_torch.configs
 import repro_torch.serve.decode, repro_torch.launch.serve
