@@ -7,7 +7,7 @@ Builds the hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
 (five sources, one ``nvcc`` each, in parallel), holds each against its plain
 PyTorch version on the card, drives the port's main path at full size, and
 checks the main path on the card against itself through the plain versions.
-The main path is six paths, each driven with the launch counts set to 0
+The main path is seven paths, each driven with the launch counts set to 0
 just before it and read just after: the 100k-agent §V economy (three binding
 epochs warm-started, three with cold restarts) through
 ``sparse_bid_eval_partials``, its epochs held bit for bit against the JAX
@@ -21,7 +21,16 @@ book); the same market densified, the paper's §III encoding, through
 ``bid_eval``; and phase [5], ``rwkv6-7b`` at full width and depth (float32
 weights from seed 0, bf16 activations) serving 4 requests of 500 prompt
 tokens and 32 greedy new ones through ``serve.decode.generate``, its
-chunked prefill running the WKV recurrence through ``wkv6`` once a layer.
+chunked prefill running the WKV recurrence through ``wkv6`` once a layer;
+and phase [7], the always-on market service: the port's service CLI
+(``repro_torch.serve.market.main``) bridged from the same 100k economy into a
+131,072-row ``MarketBook``, six ticks at 1% churn with a WAL and checkpoints
+under a temporary directory and the CLI's in-process kill and resume after
+tick 3, every tick settled through ``sparse_bid_eval_partials`` and held
+against the JAX reference's run of the same CLI recorded in
+``tools/service_100k_reference.json`` (prices, psi, rounds, flags,
+counters, health and the sha256 of every book array bit for bit; the
+payment-derived stats to rtol 1e-5), with each tick's stages timed.
 Each kernel is then held against its plain version and timed at its path's
 shapes on its path's inputs (for ``wkv6``, the tensors layer 0 and layer 31
 hand it in the served prefill).  Phase [4] also provisions the quickstart
@@ -79,6 +88,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 REFERENCE = ROOT / "tools" / "fleet_100k_reference.json"  # tools/record_reference.py
+SERVICE_REFERENCE = ROOT / "tools" / "service_100k_reference.json"  # tools/record_service_reference.py
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 GRAPH_CALLS = 20  # calls captured in one timed graph
@@ -147,6 +157,18 @@ def padded_bound(idx, val, mask, pi, prices, out_bytes: int) -> tuple[float, str
     # for vector pi) for the selection
     ops = u * b * (2 * k + (2 if pi.ndim == 2 else 1))
     return bound(nbytes(idx, val, mask, pi, prices), out_bytes + 4 * u, ops)
+
+
+def live_bound(idx, val, mask, pi, prices, out_bytes: int) -> tuple[float, str]:
+    """A K-padded book where only valid bundles need their K (idx, val) pairs
+    and their pi read (a masked bundle is never priced); the mask is read for
+    every slot.  2K operations a valid bundle for the cost, and the selection
+    as in ``padded_bound``."""
+    u, b, k = idx.shape
+    valid = int(mask.sum())
+    pi_bytes = 4 * valid if pi.ndim == 2 else nbytes(pi)
+    ops = 2 * k * valid + u * b * (2 if pi.ndim == 2 else 1)
+    return bound(8 * k * valid + pi_bytes + nbytes(mask, prices), out_bytes + 4 * u, ops)
 
 
 def dense_bound(bundles, mask, pi, prices) -> tuple[float, str]:
@@ -1445,6 +1467,141 @@ def fused_paths(torch, np, dev, kernels: list) -> None:
     del economies, prog, b, blocked
 
 
+# ---------------------------------------------------------------------------
+# [7] the always-on market service
+# ---------------------------------------------------------------------------
+
+
+def event_ms(torch, fn, calls: int = REPLAYS) -> float:
+    """Median device ms of one eager ``fn()`` call between CUDA events."""
+    for _ in range(WARMUPS):
+        fn()
+    times = []
+    for _ in range(calls):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def service_path(torch, np, dev, kernels: list) -> None:
+    """Phase [7]: the reference's service stream (tools/service_100k_reference.json)
+    through the port's ``MarketService`` CLI on the card, bridged from the
+    100k economy, with a WAL and checkpoints under a temporary directory and
+    the CLI's in-process kill and resume; every tick held against the
+    recording → the partials entry gains the service book's shape, time,
+    bound and launches."""
+    import tempfile
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import record_service_reference as rsr
+
+    from repro_torch import core as pt
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import market
+
+    want = json.loads(SERVICE_REFERENCE.read_text())
+    c = want["config"]
+    log(f"[7] service: fleet_economy({c['agents']:_}, {c['clusters']}, seed={c['seed']}) bridged "
+        f"into MarketService on the card, {c['ticks']} ticks at churn {c['churn']} and withdraw "
+        f"{c['withdraw_frac']}, WAL + checkpoints, killed and resumed after tick "
+        f"{c['ticks'] // 2}")
+    # each service's own stage timings (MarketService.last_tick_timings and
+    # .build_timings), read after each tick and each build; a strong
+    # reference only to the resumed service: the killed one must go
+    stages, built, resumed = [], [], []
+
+    def on_build(svc):
+        built.append(dict(svc.build_timings))
+        if svc.restored_step is not None:
+            resumed.append(svc)
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        builds, ticks = rsr.run_cli(market, rsr.cli_argv(
+            c["agents"], c["clusters"], c["ticks"], c["churn"], c["withdraw_frac"], c["seed"], d)
+            + ["--device", "cuda"], on_build=on_build,
+            on_tick=lambda svc: stages.append(dict(svc.last_tick_timings)))
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        captured = ops.capture_stats()
+    bad = rsr.mismatches(want, {"builds": builds, "ticks": ticks})
+    check(not bad, f"service: differs from the recorded reference: {bad}")
+    rounds = [t["rounds"] for t in ticks]
+    log(f"  {len(ticks)} ticks bit for bit as the recorded JAX reference across the kill and "
+        f"resume (rounds {rounds}, prices, psi, pct_settled, flags, counters, health, the "
+        f"sha256 of every book array; gamma, surplus, value of trade within rtol 1e-5); "
+        f"builds {builds}; the CLI's parity_check passed; {stream_s:.1f} s in all")
+    check(launches["sparse_bid_eval_partials"] >= sum(rounds) + len(rounds),
+          f"service: {launches['sparse_bid_eval_partials']} partials launches for rounds {rounds}")
+    check(sum(launches.values()) == launches["sparse_bid_eval_partials"],
+          f"another kernel ran on the service path: {launches}")
+    log(f"  launches {launches}; CUDA graphs captured {captured['graphs']} in "
+        f"{captured['seconds'] * 1e3:.1f} ms")
+    check(len(stages) == len(ticks) and len(built) == len(resumed) + 1 == 2,
+          "service: a tick or a build without its timings")
+    for t, st in enumerate(stages):
+        log(f"  tick {t}: drain {st['drain_ms']:.2f} ms, device sync {st['sync_ms']:.2f} ms "
+            f"({st['sync_rows']} rows written), clock {st['settle_ms']:.1f} ms for "
+            f"{rounds[t]} rounds (capturing {st['capture_ms']:.1f} ms), commit "
+            f"{st['commit_ms']:.1f} ms (a {st['record']} record), tick {st['tick_ms']:.1f} ms")
+    bridge, recovery = built
+    log(f"  bridge: bulk load of {builds[0]['rows']} rows {bridge['load_ms']:.1f} ms, bootstrap "
+        f"full record {bridge['bootstrap_ms']:.1f} ms; resume: restore (full + deltas, "
+        f"parity_check) {recovery['restore_ms']:.1f} ms, WAL replay of "
+        f"{builds[1]['replayed_records']} records {recovery['wal_replay_ms']:.1f} ms")
+
+    # -- the partials kernel at the service book, on the last tick's prices --
+    svc = resumed[0]
+    book = svc.book.device_padded_problem()
+    prices = torch.from_numpy(svc.price_history[-1]).to(dev)
+    r = book.num_resources
+    args = (book.idx, book.val, book.bundle_mask, book.pi, prices)
+    nb = svc.settle_blocks
+    parts_k, chosen = ops.sparse_bid_eval(*args, r, nb)
+    torch.cuda.synchronize()
+    parts_p, chosen_p = ref.sparse_bid_eval(*args, r, nb)
+    err = float((parts_k - parts_p).abs().max())
+    check(torch.equal(chosen, chosen_p) and same_bits(torch, parts_k, parts_p),
+          f"service book: partials off their plain version by {err}")
+    u, b, k = book.idx.shape
+    k_ms = graph_ms(torch, lambda: ops.sparse_bid_eval(*args, r, nb))
+    p_ms = graph_ms(torch, lambda: ops.sparse_bid_eval(*args, r, nb, plain=True))
+    b_ms, b_by = live_bound(*args, out_bytes=4 * nb * r)
+    # the reference's view of the same mirror: CSR, offsets the fixed-K ladder
+    csr = pt.CSRAuctionProblem(
+        idx=book.idx.reshape(-1), val=book.val.reshape(-1),
+        rows=torch.arange(u * b, dtype=torch.int32, device=dev).repeat_interleave(k),
+        offsets=torch.arange(u * b + 1, dtype=torch.int32, device=dev) * k,
+        bundle_mask=book.bundle_mask, pi=book.pi, base_cost=book.base_cost,
+        supply_scale=book.supply_scale, num_resources=r, k_bound=k)
+    gathered = pt.csr_padded_views(csr)
+    check(torch.equal(gathered[0], book.idx) and torch.equal(gathered[1], book.val),
+          "service book: the padded view is not the CSR gather")
+    gather_ms = event_ms(torch, lambda: pt.csr_padded_views(csr))
+    shape = f"U={u} B={b} K={k} R={r} vector pi, {nb} blocks of {u // nb} (vectorized fold)"
+    log(f"  sparse_bid_eval_partials, the service book {shape}: {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); partials bit-identical, chosen exact; "
+        f"the CSR gather the in-place padded view avoids: {gather_ms:.4f} ms a call")
+    entry = next(e for e in kernels if e["name"] == "sparse_bid_eval_partials")
+    entry["launches_service"] = launches["sparse_bid_eval_partials"]
+    entry["launches"] += launches["sparse_bid_eval_partials"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["path"] += f", and {len(ticks)} service ticks"
+    entry["service_book"] = {
+        "shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "launches": launches["sparse_bid_eval_partials"], "rounds": rounds,
+        "csr_gather_ms": gather_ms, "stream_s": stream_s,
+        "ticks": stages, "bridge": bridge, "resume": recovery}
+    del svc, resumed, book, args, csr, gathered
+
+
 def run(torch, np) -> dict:
     from repro_torch.kernels import build
 
@@ -1465,6 +1622,9 @@ def run(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     fused_paths(torch, np, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    service_path(torch, np, dev, kernels)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """Market-economy provisioning core, in PyTorch (the port of ``repro.core``).
 
 * types: ResourcePool, AuctionProblem / SparseAuctionProblem /
-  CSRAuctionProblem and their packers and converters
+  CSRAuctionProblem and their packers and converters; MarketBook, the
+  service's persistent book
 * reserve: congestion-weighted reserve curves
 * auction: clock_auction, ClockConfig, verify_system, surplus_and_trade
 * bidlang, policies, faults: numpy copies of the reference's modules
@@ -15,6 +16,7 @@ from .types import (
     AuctionProblem,
     AuctionResult,
     CSRAuctionProblem,
+    MarketBook,
     ResourcePool,
     SparseAuctionProblem,
     SparseAuctionResult,
@@ -79,7 +81,7 @@ from .state import economy_state, load_economy_state
 from .provisioner import DeviceGrant, grant_to_mesh, grants_from_allocation, plan_mesh_shape
 
 __all__ = [
-    "AuctionProblem", "AuctionResult", "CSRAuctionProblem", "ResourcePool",
+    "AuctionProblem", "AuctionResult", "CSRAuctionProblem", "MarketBook", "ResourcePool",
     "SparseAuctionProblem", "SparseAuctionResult",
     "as_device", "bundle_cluster_costs", "csr_from_padded", "csr_padded_views",
     "csr_problem_from_arrays", "densify", "operator_supply_bids", "pack_bids",

@@ -20,10 +20,10 @@ apply — on the device over device-resident state (:mod:`.fused`: CUDA
 graphs on the card), and ``pipeline=True`` overlaps one epoch's host stats
 with the next epoch's device work in :meth:`Economy.run_horizon`.
 ``packer="loop"`` packs and applies with the reference's per-agent loops
-(the parity oracle of the vectorized packer).
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item): the
-always-on service bridge.  Settlement runs on one device.
+(the parity oracle of the vectorized packer).  ``export_bid_rows`` and
+``drain_bid_deltas`` bridge the economy to the always-on
+:class:`~repro_torch.serve.market.MarketService` over stable agent uids.
+Settlement runs on one device.
 """
 from __future__ import annotations
 
@@ -531,6 +531,14 @@ class Economy:
         self._churn_arrivals_rejected = 0
         self._churn_arrival_units_rejected = 0.0
         self._churn_release_shortfall = 0.0
+        # stable agent identities and dirty-bid tracking: uids survive the
+        # index compaction of remove_agents; the dirty sets record which
+        # agents' sticky bids changed since the last drain_bid_deltas(), so
+        # an always-on MarketService book stays in sync in O(Δ) rows
+        self._agent_uid = np.arange(len(self.pop), dtype=np.int64)
+        self._uid_next = int(len(self.pop))
+        self._dirty_uids: set[int] = set()
+        self._removed_uids: set[int] = set()
 
     # -- population bookkeeping ----------------------------------------------
     @property
@@ -583,6 +591,10 @@ class Economy:
             self._reach_keys = np.vstack(
                 [self._reach_keys, np.full((len(newcomers), self.C), np.nan)]
             )
+        new_uids = np.arange(self._uid_next, self._uid_next + len(newcomers), dtype=np.int64)
+        self._uid_next += len(newcomers)
+        self._agent_uid = np.concatenate([self._agent_uid, new_uids])
+        self._dirty_uids.update(new_uids.tolist())
         self._state_dirty = True
         return accepted
 
@@ -606,6 +618,10 @@ class Economy:
         self.pop = self.pop.select(~mask)
         if self._reach_keys is not None:
             self._reach_keys = self._reach_keys[~mask]
+        gone_uids = self._agent_uid[mask]
+        self._removed_uids.update(gone_uids.tolist())
+        self._dirty_uids.difference_update(gone_uids.tolist())
+        self._agent_uid = self._agent_uid[~mask]
         self._state_dirty = True
         return int(held.sum())
 
@@ -625,16 +641,79 @@ class Economy:
             self._churn_release_shortfall = 0.0
         return vals
 
-    # -- always-on service bridge ---------------------------------------------
-    def export_bid_rows(self, agents: np.ndarray | None = None):
-        raise NotImplementedError(
-            "export_bid_rows: the service bridge is ROADMAP queue 1, item \"The service\""
-        )
+    # -- always-on service bridge (serve.market) -------------------------------
+    def export_bid_rows(
+        self, agents: np.ndarray | None = None
+    ) -> tuple[list[str], np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Sticky buy bids for a persistent :class:`MarketBook`, packed.
 
-    def drain_bid_deltas(self):
-        raise NotImplementedError(
-            "drain_bid_deltas: the service bridge is ROADMAP queue 1, item \"The service\""
+        Returns ``(keys, idx_rows, val_rows, mask_rows, pi_rows)`` ready for
+        ``MarketBook.upsert_rows``: one row per agent, one XOR bundle per
+        reachable cluster (home first, then ascending cluster index,
+        truncated to the mobility budget), valued at the agent's requirement
+        and priced at ``min(value − relocation, belief·(1+margin), budget)``.
+
+        The export is RNG-free (deterministic reach, no arbitrage coin),
+        because a streaming service's resting bids persist between auctions:
+        re-exporting an unchanged agent yields a bit-identical row.  Keys are
+        ``agent-<uid>`` over the stable uids, so rows survive index
+        compaction on departures.
+        """
+        pop = self.pop
+        if agents is None:
+            agents = np.arange(len(pop))
+        agents = np.asarray(agents, np.int64)
+        n, C, T = agents.size, self.C, self.T
+        home = pop.home[agents]
+        n_reach = np.clip(np.rint(pop.mobility[agents] * C).astype(np.int64), 1, C)
+        # deterministic reach order: home first, then cluster index
+        order_key = np.broadcast_to(np.arange(C, dtype=np.float64), (n, C)).copy()
+        has_home = home >= 0
+        order_key[np.flatnonzero(has_home), home[has_home]] = -1.0
+        order = np.argsort(order_key, axis=1, kind="stable")
+        valid = np.arange(C)[None, :] < n_reach[:, None]
+        believed = bundle_cluster_costs(pop.req[agents], self.belief)  # (n, C)
+        away = np.arange(C)[None, :] != home[:, None]
+        ceiling = np.minimum(
+            np.minimum(
+                pop.value[agents, None] - pop.relocation_cost[agents, None] * away,
+                believed * (1.0 + pop.margins()[agents])[:, None],
+            ),
+            pop.budget[agents, None],
         )
+        bc = np.where(valid, order, 0)
+        idx_rows = (bc[:, :, None] * T + np.arange(T)[None, None, :]).astype(np.int32)
+        idx_rows = np.where(valid[:, :, None], idx_rows, 0)
+        val_rows = np.where(valid[:, :, None], pop.req[agents, None, :], 0.0).astype(np.float32)
+        pi_rows = np.where(valid, np.take_along_axis(ceiling, bc, axis=1), 0.0).astype(np.float32)
+        # a bundle priced at or below zero can never win: mask it out so the
+        # book's validation (pi > 0 where mask) holds
+        mask_rows = valid & (pi_rows > 0.0)
+        pi_rows = np.where(mask_rows, pi_rows, 0.0)
+        val_rows = np.where(mask_rows[:, :, None], val_rows, 0.0)
+        idx_rows = np.where(mask_rows[:, :, None], idx_rows, 0)
+        keys = [f"agent-{u}" for u in self._agent_uid[agents]]
+        return keys, idx_rows, val_rows, mask_rows, pi_rows
+
+    def drain_bid_deltas(
+        self,
+    ) -> tuple[list[str], tuple[list[str], np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+        """Bid-book deltas accumulated since the last drain.
+
+        Returns ``(withdraw_keys, upserts)`` where ``upserts`` has the
+        :meth:`export_bid_rows` layout, covering exactly the agents whose
+        sticky bids changed (arrivals, policy actions) and the uids that
+        departed.  Applying both to a MarketBook previously synced with
+        ``export_bid_rows()`` re-synchronizes it in O(Δ)."""
+        withdraw = [f"agent-{u}" for u in sorted(self._removed_uids)]
+        dirty = np.array(sorted(self._dirty_uids), dtype=np.int64)
+        # uids -> current indices: _agent_uid is strictly increasing (concat
+        # appends fresh uids; select preserves order), so searchsorted maps
+        idx = np.searchsorted(self._agent_uid, dirty)
+        upserts = self.export_bid_rows(idx)
+        self._removed_uids.clear()
+        self._dirty_uids.clear()
+        return withdraw, upserts
 
     # -- pool bookkeeping ----------------------------------------------------
     def pool_idx(self, c: int, t: int) -> int:
@@ -887,6 +966,7 @@ class Economy:
         pi_scale: np.ndarray | None = None
         arb: np.ndarray | None = None
         margin: np.ndarray | None = None
+        acted: list[np.ndarray] = []
         for pid, pol in enumerate(self.policies):
             idx = np.flatnonzero(pop.policy == pid)
             if idx.size == 0:
@@ -894,6 +974,7 @@ class Economy:
             act = pol.act(obs, pop, idx)
             if act is None:
                 continue
+            acted.append(idx)
             if act.redraw_reach is not None and self._reach_keys is not None:
                 keep = ~np.asarray(act.redraw_reach, bool)
                 keep &= ~np.isnan(self._reach_keys[idx]).any(axis=1)
@@ -916,6 +997,10 @@ class Economy:
                 margin[idx] = act.margin
         if not dry_run:
             self._reach_keys = base_keys
+            # policy actions changed these agents' effective bids: mark them
+            # dirty so the service bridge re-exports their rows
+            for idx in acted:
+                self._dirty_uids.update(self._agent_uid[idx].tolist())
         return perm_keys, pi_scale, arb, margin
 
     # -- bid-book construction -----------------------------------------------

@@ -1,2 +1,8 @@
-"""Serving layer of the port: batched generation (:mod:`.decode`).  The
-market service comes with ROADMAP queue 1, item "The service"."""
+"""Serving layer of the port: the always-on market service (:mod:`.market`,
+with its write-ahead log :mod:`.wal` and :class:`ServiceConfig`) and batched
+generation (:mod:`.decode`)."""
+from .config import ServiceConfig
+from .market import BidDelta, MarketService, ServiceHealth
+from .wal import WriteAheadLog
+
+__all__ = ["BidDelta", "MarketService", "ServiceConfig", "ServiceHealth", "WriteAheadLog"]

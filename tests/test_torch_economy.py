@@ -143,13 +143,27 @@ def test_churn_matches_jax():
     _assert_state_agrees(ej, et)
 
 
-def test_unported_paths_raise():
-    """The service bridge still raises; the fused epoch and the loop packer
-    are ported and construct."""
+def test_fused_epoch_and_loop_packer_construct():
     assert pt.make_fleet_economy(seed=0, device="cpu", fused=True).fused
     assert pt.make_fleet_economy(seed=0, device="cpu", packer="loop").packer == "loop"
-    eco = pt.make_fleet_economy(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eco.export_bid_rows()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eco.drain_bid_deltas()
+
+
+def test_service_bridge_matches_reference():
+    """The service bridge exports and drains exactly the reference's rows,
+    also after removals and an epoch; a second drain is empty."""
+    ej, et = jx.make_fleet_economy(seed=0), pt.make_fleet_economy(seed=0, device="cpu")
+
+    def same_rows(a, b):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+
+    same_rows(ej.export_bid_rows(), et.export_bid_rows())
+    for eco in (ej, et):
+        eco.remove_agents(np.arange(len(eco.pop)) % 5 == 0)
+        eco.run_epoch()
+    wj, uj = ej.drain_bid_deltas()
+    wt, ut = et.drain_bid_deltas()
+    assert wj == wt and len(wt) > 0
+    same_rows(uj, ut)
+    assert et.drain_bid_deltas()[0] == []

@@ -20,6 +20,9 @@ import repro_torch, repro_torch.core, repro_torch.core.provisioner, repro_torch.
 import repro_torch.kernels.ops, repro_torch.kernels.build
 import repro_torch.models, repro_torch.models.convert, repro_torch.configs
 import repro_torch.serve.decode, repro_torch.launch.serve
+import repro_torch.serve.market, repro_torch.serve.wal, repro_torch.serve.config
+import repro_torch.checkpoint, repro_torch.checkpoint.store, repro_torch.checkpoint.service
+import repro_torch.checkpoint.market
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps(bad))
@@ -63,3 +66,23 @@ def test_model_entry_points_without_a_gpu_raise(monkeypatch):
         serve.main(["--arch", "rwkv6-7b", "--smoke"])
     params = init_params(torch.Generator(), api.decls(cfg), device="cpu")
     assert params["embed"].device.type == "cpu"
+
+
+def test_service_entry_points_without_a_gpu_raise(monkeypatch):
+    import numpy as np
+
+    from repro_torch.serve.market import BidDelta, MarketService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = np.ones(4, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MarketService(base, num_bundles=2, k_bound=2)  # the default device is the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.MarketBook(base, 2, 2)
+    eco = pt.make_fleet_economy(seed=0, device="cpu")
+    assert MarketService.from_economy(eco).device.type == "cpu"  # the economy's device
+    svc = MarketService(base, num_bundles=2, k_bound=2, device="cpu")
+    assert svc.submit(BidDelta("a", [([0, 1], [1.0, 2.0])], [5.0]))
+    assert svc.tick().bids_submitted == 1 and "a" in svc.book
+    assert svc.book.device.type == "cpu"
+    assert pt.MarketBook(base, 2, 2, device="cpu").device.type == "cpu"
