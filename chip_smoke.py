@@ -53,8 +53,14 @@ versions (chosen exact, z within ``z_tolerance``) at edge books: U around
 the span plan's span and at 101,000, R in Z_EDGE_R (4,097 past the staged
 prices), every user out, a padded book read in place, CSR empty bundles and
 a CSR user longer than the staging budget, whose CTA takes the kernel's
-branch that reads its elements from device memory.  Any failed check
-raises; nothing is caught and carried on.
+branch that reads its elements from device memory.  Phase [6] also holds
+``ordered_scatter_add`` against its plain version bit for bit at the
+pack's supply call, the settle's usage call rebuilt from warm epoch 1 and
+cold epoch 0, 100,000 placed rows and the edge streams of
+``scatter_edges`` (1M rows into one target, 255 targets with an int64
+index past int32, float64 rows of 8, every row dropped), and times each
+whole and as its partition and its fold.  Any failed check raises;
+nothing is caught and carried on.
 
 Output: progress lines, then the card's ``name, power.limit``, then one JSON
 line ``{"kernels": [...]}`` with one entry per kernel entry point, then the
@@ -69,10 +75,14 @@ loop re-reads it every round (the dense books, 1.2-1.6 GB, do not fit it).
 Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s float32
 (non-tensor) peaks and, for ``wkv6``'s exponentials and logs, 16 SFU
 operations a clock on each of the 132 SMs at the card's maximum SM clock.
+``ordered_scatter_add``'s bound is the larger of its bytes and its chain:
+the longest target's kept rows times the dependent add latency that
+``add_chain_probe`` measures on the card in the same run.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -273,11 +283,14 @@ def dense_round_book(torch, dev, u, b, r, seed):
 
 
 def same_bits(torch, a, b) -> bool:
-    """Bit for bit: NaN where the other is NaN, every other float32 with
-    the same bits (so -0.0 and +0.0 differ)."""
+    """Bit for bit: NaN where the other is NaN, every other float32 or
+    float64 with the same bits (so -0.0 and +0.0 differ)."""
+    if a.dtype != b.dtype:
+        return False
+    ints = torch.int32 if a.element_size() == 4 else torch.int64
     nan = torch.isnan(a)
     return bool(torch.equal(nan, torch.isnan(b))) and bool(torch.equal(
-        torch.where(nan, 0, a.view(torch.int32)), torch.where(nan, 0, b.view(torch.int32))))
+        torch.where(nan, 0, a.view(ints)), torch.where(nan, 0, b.view(ints))))
 
 
 def z_tolerance(torch, sel_idx_flat, sel_val_flat, r):
@@ -1232,10 +1245,183 @@ def epoch_breakdown(torch, eco) -> dict:
     return sink
 
 
-def scatter_bound(index, source, out) -> tuple[float, str]:
-    """Each index and value read once, out read and written once; one add a
-    kept row."""
-    return bound(nbytes(index, source, out), nbytes(out), source.numel())
+# ---------------------------------------------------------------------------
+# ordered_scatter_add: its calls, their two bounds, the card's add latency
+# ---------------------------------------------------------------------------
+
+PROBE_ADDS = 2**20  # dependent adds the latency is read over
+
+
+def add_latency_ns(torch) -> dict:
+    """The card's dependent add latency (ns), float32 and float64:
+    ``add_chain_probe`` (one thread, one chain of ``__fadd_rn`` or
+    ``__dadd_rn``) timed with CUDA events at 2·PROBE_ADDS and PROBE_ADDS
+    adds; their difference over PROBE_ADDS, so the launch cancels out."""
+    from repro_torch.kernels import build
+
+    probe = build.library("ordered_scatter").add_chain_probe
+    probe.restype = ctypes.c_int
+    probe.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+    latency = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        out = torch.zeros(1, dtype=dtype, device="cuda")
+
+        def chain(adds, out=out, is_double=int(dtype == torch.float64)):
+            err = probe(adds, is_double, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"add_chain_probe: cudaError {err}")
+
+        ms = {a: event_ms(torch, lambda a=a: chain(a), calls=5)
+              for a in (PROBE_ADDS, 2 * PROBE_ADDS)}
+        check(float(out) == 2 * PROBE_ADDS + 1, f"add_chain_probe {name}: sum {float(out)}")
+        latency[name] = (ms[2 * PROBE_ADDS] - ms[PROBE_ADDS]) * 1e6 / PROBE_ADDS
+    return latency
+
+
+def scatter_halves(ops):
+    """The kernel's two halves, ``ordered_scatter_partition`` (count, scan,
+    place) and ``ordered_scatter_fold``, with ``ordered_scatter_add``'s
+    arguments."""
+    from repro_torch.kernels import build
+
+    lib = build.library("ordered_scatter")
+    halves = {}
+    for half in ("partition", "fold"):
+        f = getattr(lib, f"ordered_scatter_{half}")
+        f.restype = ctypes.c_int
+        f.argtypes = ops._SIGNATURES[("ordered_scatter", "ordered_scatter_add")]
+        halves[half] = f
+    return halves
+
+
+def scatter_call(torch, ops, label, out, index, source, latency, halves) -> dict:
+    """One ``ordered_scatter_add`` call held bit for bit against its plain
+    version, then timed whole, as its partition and its fold alone, as
+    ``index_add_`` of its kept rows (atomics, unordered) and as the plain
+    version; with its kept rows, its longest chain and its two bounds: the
+    byte bound (the index read once, the kept rows' values read once, out
+    read and written once) and the chain bound (the longest chain × the
+    dependent add latency)."""
+    got = ops.ordered_scatter_add(out.clone(), index, source)
+    want = ops.ordered_scatter_add(out.clone(), index, source, plain=True)
+    check(same_bits(torch, got, want), f"ordered_scatter_add {label}: differs from the plain "
+          f"version by up to {float((got - want).abs().max())}")
+    n, width = out.shape[0], out[0].numel()
+    keep = (index >= 0) & (index < n)
+    kept_i, kept_s = index[keep], source[keep].to(out.dtype)
+    kept, longest = int(keep.sum()), int(torch.bincount(kept_i.long(), minlength=n).max())
+    buf = out.clone()
+    ms = graph_ms(torch, lambda: ops.ordered_scatter_add(buf, index, source))
+    args, held = ops.scatter_args(buf, index, source)
+
+    def half(name):  # on the stream current at the call: graph_ms captures on its own
+        err = halves[name](*args[:-1], torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"ordered_scatter_{name}: cudaError {err}")
+
+    half("partition")  # the fold alone folds this partition
+    part_ms = graph_ms(torch, lambda: half("partition"))
+    fold_ms = graph_ms(torch, lambda: half("fold"))
+    lib_buf = out.clone()
+    lib_ms = graph_ms(torch, lambda: lib_buf.index_add_(0, kept_i, kept_s)) if kept else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ops.ordered_scatter_add(out.clone(), index, source, plain=True)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 3
+    byte_ms = (nbytes(index) + kept * width * source.element_size() + 2 * nbytes(out)) \
+        / HBM_BYTES_PER_S * 1e3
+    chain_ms = longest * latency["f64" if out.dtype == torch.float64 else "f32"] * 1e-6
+    row = {
+        "call": label, "rows": index.numel(), "kept": kept, "targets": n, "width": width,
+        "dtype": str(out.dtype).removeprefix("torch."),
+        "index_dtype": str(index.dtype).removeprefix("torch."), "longest_chain": longest,
+        "ms": ms, "partition_ms": part_ms, "fold_ms": fold_ms, "byte_bound_ms": byte_ms,
+        "chain_bound_ms": chain_ms, "bound_ms": max(byte_ms, chain_ms),
+        "bound_by": "operations" if chain_ms > byte_ms else "bytes", "library_ms": lib_ms,
+        "plain_ms": plain_ms, "max_abs_err": 0.0}
+    log(f"  ordered_scatter_add {label}: {row['rows']} rows ({kept} kept, longest chain "
+        f"{longest}) into {n} x {width} {row['dtype']}, {row['index_dtype']} index: {ms:.4f} ms "
+        f"(partition {part_ms:.4f}, fold {fold_ms:.4f}); bounds: bytes {byte_ms:.4f}, chain "
+        f"{chain_ms:.4f} ms; index_add_ (atomics, unordered) "
+        f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms; plain {plain_ms:.3f} ms; "
+        "bit-identical to the plain version")
+    return row
+
+
+def keep_settle_inputs(torch, eco, sink: list) -> None:
+    """Wrap ``eco._fused_adopt``: each epoch's copies of what the settle's
+    usage call was built from (the placements and usage it started from,
+    the winners, the bought clusters) and of the usage it ended with go to
+    ``sink``; nothing is rebuilt until :func:`settle_usage_call`."""
+    inner = eco._fused_adopt
+
+    def adopt(prep, out):
+        sink.append({"placed": prep["placed_eff"].copy(), "usage": eco.usage.copy(),
+                     "cap_eff": prep["cap_eff"].copy(),
+                     **{k: out[k].clone() for k in ("won_sell", "won_buy", "buy_cluster",
+                                                    "usage_new")}})
+        return inner(prep, out)
+
+    eco._fused_adopt = adopt
+
+
+def settle_usage_call(torch, ops, eco, kept: dict):
+    """(out, index, source) of the settle's usage commit
+    (``core/fused.py``, ``ration_fallback`` off): the sell, buy and move
+    rows of every agent, 3N rows of T into C, only the winners' in range;
+    checked to give the usage the epoch adopted."""
+    dev = kept["won_buy"].device
+    C = eco.C
+    placed = torch.from_numpy(kept["placed"]).to(dev)
+    won_sell, won_buy, bc = kept["won_sell"], kept["won_buy"], kept["buy_cluster"]
+    old = torch.where(won_sell, -1, placed)
+    move = won_buy & (old >= 0) & (old != bc)
+    index = torch.cat([torch.where(won_sell, placed, C), torch.where(won_buy, bc, C),
+                       torch.where(move, old, C)])
+    req = torch.from_numpy(eco.pop.req).to(dev)
+    source = torch.cat([-req, req, -req])
+    usage = torch.from_numpy(kept["usage"]).to(dev)
+    cap = torch.from_numpy(kept["cap_eff"]).to(dev)
+    u = ops.ordered_scatter_add(usage.clone(), index, source)
+    check(torch.equal(torch.minimum(torch.clamp_min(u, 0.0), cap), kept["usage_new"]),
+          "the rebuilt usage call does not give the epoch's usage")
+    return usage, index, source
+
+
+def scatter_edges(torch, dev) -> list:
+    """(label, out, index, source) streams at the edges of the kernel's
+    plan, made from seed 18 on the card, every 97th value ±0.0 or
+    subnormal."""
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def values(e, width, dtype):
+        v = (torch.rand((e, width), generator=g, device=dev, dtype=torch.float64) * 8 - 3) \
+            * 10.0 ** torch.randint(-4, 5, (e, 1), generator=g, device=dev)
+        tiny = torch.tensor([0.0, -0.0, 5e-324, -4e-320] if dtype == torch.float64 else
+                            [0.0, -0.0, 1e-45, -3e-41], dtype=torch.float64, device=dev)
+        v[::97] = tiny[torch.arange(v[::97].shape[0], device=dev) % 4][:, None]
+        return v.to(dtype).squeeze(1) if width == 1 else v.to(dtype)
+
+    def targets(e, n, dtype, drop):
+        t = torch.randint(0, n, (e,), generator=g, device=dev)
+        gone = torch.rand(e, generator=g, device=dev) < drop
+        t = torch.where(gone, torch.where(t % 2 == 0, -1, n + t), t)
+        return t.to(dtype)
+
+    mega = 1_000_000
+    far = targets(mega, 255, torch.int64, 0.05)
+    far = torch.where(torch.rand(mega, generator=g, device=dev) < 0.01, far + 2**33, far)
+    return [
+        ("1M rows into one target (the longest chain)",
+         torch.zeros(1, device=dev), torch.zeros(mega, dtype=torch.int32, device=dev),
+         values(mega, 1, torch.float32)),
+        ("255 targets, 5% dropped, 1% past int32 (int64 index)",
+         torch.zeros(255, device=dev), far, values(mega, 1, torch.float32)),
+        ("W=8 float64, 300k rows into 8",
+         torch.zeros((8, 8), dtype=torch.float64, device=dev),
+         targets(300_000, 8, torch.int64, 0.05), values(300_000, 8, torch.float64)),
+        ("every row dropped", torch.zeros(24, device=dev),
+         targets(mega, 24, torch.int32, 1.0), values(mega, 1, torch.float32)),
+    ]
 
 
 def fused_paths(torch, np, dev, kernels: list) -> None:
@@ -1252,6 +1438,9 @@ def fused_paths(torch, np, dev, kernels: list) -> None:
                                          device=dev)
                  for label, warm in (("warm-started", True), ("cold restarts", False))}
     by_part = epoch_breakdown(torch, economies["cold restarts"])
+    settle_kept = {label: [] for label in economies}
+    for label, eco in economies.items():
+        keep_settle_inputs(torch, eco, settle_kept[label])
     warm_stats, walls = [], {}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1417,53 +1606,45 @@ def fused_paths(torch, np, dev, kernels: list) -> None:
         "us_per_replayed_round": (clock_ms - clock_cap) / rounds0 * 1e3, "pipeline": pipeline,
         "z_backend_rounds": z_rounds}
 
-    # the supply scatter of the fused pack: every (row, bundle, term) of the
-    # slot book, dead terms dropped; and the usage commit's f64 rows
+    # ordered_scatter_add at the fused path's calls: the pack's supply
+    # normaliser (every (row, bundle, term) of the slot book, dead terms
+    # dropped, the int32 index as core/fused.py passes it); the settle's
+    # usage commit rebuilt from a warm epoch and from cold epoch 0; the
+    # 100,000 placed rows into 8 (the densest chain); the edge streams
+    latency = add_latency_ns(torch)
+    log(f"  dependent add latency (add_chain_probe, {PROBE_ADDS} adds): float32 "
+        f"{latency['f32']:.4f} ns, float64 {latency['f64']:.4f} ns")
+    halves = scatter_halves(ops)
     flat_val = b["val"].reshape(-1)
-    index = torch.where(flat_val != 0, b["idx"].reshape(-1).long(), -1)
-    source = flat_val.abs()
-    zeros = torch.zeros(r, dtype=torch.float32, device=dev)
-    got = ops.ordered_scatter_add(zeros.clone(), index, source)
-    want = ops.ordered_scatter_add(zeros.clone(), index, source, plain=True)
-    err = float((got - want).abs().max())
-    check(same_bits(torch, got, want), f"ordered_scatter_add supply: off by {err}")
-    eco = economies["cold restarts"]
-    req = torch.from_numpy(eco.pop.req).to(dev)
-    rows_at = torch.from_numpy(np.where(eco.pop.placed >= 0, eco.pop.placed, eco.C)).to(dev)
-    usage = torch.from_numpy(eco.usage).to(dev)
-    got64 = ops.ordered_scatter_add(usage.clone(), rows_at, -req)
-    want64 = ops.ordered_scatter_add(usage.clone(), rows_at, -req, plain=True)
-    check(torch.equal(got64, want64), "ordered_scatter_add float64 usage rows differ")
-    os_ms = graph_ms(torch, lambda: ops.ordered_scatter_add(zeros.clone(), index, source))
-    keep = (index >= 0).nonzero()[:, 0]
-    kept_i, kept_s = index[keep].contiguous(), source[keep].contiguous()
-    lib_ms = graph_ms(torch, lambda: zeros.clone().index_add_(0, kept_i, kept_s))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        ops.ordered_scatter_add(zeros.clone(), index, source, plain=True)
-    os_plain = (time.perf_counter() - t0) * 1e3 / 5
-    os_bound = scatter_bound(index, source, zeros)
-    u_ms = graph_ms(torch, lambda: ops.ordered_scatter_add(usage.clone(), rows_at, -req))
-    # the wrapper's stable sort alone, at both shapes
-    sort_ms = [graph_ms(torch, lambda k=torch.where((i >= 0) & (i < m), i, m).to(
-        ops._sort_dtype(m)): torch.sort(k, stable=True)) for i, m in ((index, r), (rows_at, eco.C))]
-    log(f"  ordered_scatter_add supply, {index.numel()} rows ({keep.numel()} kept) into {r}: "
-        f"{os_ms:.4f} ms, plain (the host's index_add_, copies included) {os_plain:.4f} ms, "
-        f"index_add_ on the card (atomics, unordered) {lib_ms:.4f} ms, bound {os_bound[0]:.4f} "
-        f"ms ({os_bound[1]}); float64 usage rows ({req.shape[0]} x {req.shape[1]} into "
-        f"{eco.C}): {u_ms:.4f} ms; both bit-identical to the plain version; their stable sorts "
-        f"alone {sort_ms[0]:.4f} and {sort_ms[1]:.4f} ms")
+    index = torch.where(flat_val != 0, b["idx"].reshape(-1), -1)
+    supply = scatter_call(torch, ops, "supply (the fused pack)",
+                          torch.zeros(r, dtype=torch.float32, device=dev), index, flat_val.abs(),
+                          latency, halves)
+    eco_w, eco_c = economies["warm-started"], economies["cold restarts"]
+    usage_calls = [("usage (the settle, warm epoch 1)", eco_w, settle_kept["warm-started"][1]),
+                   ("usage (the settle, cold epoch 0)", eco_c, settle_kept["cold restarts"][0])]
+    calls = [scatter_call(torch, ops, label, *settle_usage_call(torch, ops, eco, kept), latency,
+                          halves) for label, eco, kept in usage_calls]
+    req = torch.from_numpy(eco_c.pop.req).to(dev)
+    rows_at = torch.from_numpy(np.where(eco_c.pop.placed >= 0, eco_c.pop.placed, eco_c.C)).to(dev)
+    calls.append(scatter_call(torch, ops, "usage, 100,000 placed rows (the densest chain)",
+                              torch.from_numpy(eco_c.usage).to(dev), rows_at, -req, latency,
+                              halves))
+    calls += [scatter_call(torch, ops, f"edge: {label}", *stream, latency, halves)
+              for label, *stream in scatter_edges(torch, dev)]
     kernels.append({
         "name": "ordered_scatter_add", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ordered_scatter.cu",
         "replaces": "src/repro/core/fused.py:361 (XLA scatter-add on the CPU, no pallas_call)",
-        "launches": fused_launches["ordered_scatter_add"], "max_abs_err": err, "ms": os_ms,
-        "plain_ms": os_plain, "bound_ms": os_bound[0], "bound_by": os_bound[1],
-        "library_ms": lib_ms, "path": "fused fleet economy, 6 epochs",
-        "shape": f"E={index.numel()} ({keep.numel()} kept) into R={r}, float32",
-        "usage_rows": {"shape": f"E={req.shape[0]} W={req.shape[1]} into C={eco.C}, float64",
-                       "ms": u_ms}, "sort_ms": sort_ms})
+        "launches": fused_launches["ordered_scatter_add"], "max_abs_err": 0.0,
+        "ms": supply["ms"], "plain_ms": supply["plain_ms"], "bound_ms": supply["bound_ms"],
+        "bound_by": supply["bound_by"], "library_ms": supply["library_ms"],
+        "chain_bound_ms": supply["chain_bound_ms"], "byte_bound_ms": supply["byte_bound_ms"],
+        "add_latency_ns": latency, "longest_chain": supply["longest_chain"],
+        "kept": supply["kept"], "partition_ms": supply["partition_ms"],
+        "fold_ms": supply["fold_ms"], "path": "fused fleet economy, 6 epochs",
+        "shape": f"E={supply['rows']} ({supply['kept']} kept) into R={r}, float32, int32 index",
+        "calls": calls})
     del economies, prog, b, blocked
 
 

@@ -310,11 +310,12 @@ class FusedEpoch:
         U = present.sum()
 
         # supply normaliser: the staged CSR pack's f32 running scatter, in
-        # operand order (dead entries would add exact +0.0: dropped)
+        # operand order (dead entries would add exact +0.0: dropped); the
+        # index stays int32, which the kernel reads in place
         flat_val = val.reshape(-1)
         supply = ops.ordered_scatter_add(
             torch.zeros(R, dtype=f32, device=dev),
-            torch.where(flat_val != 0, idx.reshape(-1).long(), -1), flat_val.abs(),
+            torch.where(flat_val != 0, idx.reshape(-1), -1), flat_val.abs(),
             plain=self.plain)
         supply = torch.clamp_min(supply, 1.0)
 

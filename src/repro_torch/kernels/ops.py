@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import time
 from typing import NamedTuple
 
@@ -39,7 +40,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
     ),
     ("wkv6", "wkv6"): (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    ("ordered_scatter", "ordered_scatter_add"): (_P, _P, _I, _I, _I, _P, _P),
+    ("ordered_scatter", "ordered_scatter_add"): (
+        _P, _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P,
+    ),
 }
 
 
@@ -449,9 +452,81 @@ def wkv6(
     return o, s_out
 
 
-def _sort_dtype(n: int) -> torch.dtype:
-    """The narrowest integer type that holds targets 0..n (n: dropped rows)."""
-    return torch.uint8 if n < 256 else torch.int16 if n < 2**15 else torch.int32
+# ---------------------------------------------------------------------------
+# ordered_scatter_add: the partition plan.  A count / place block of the
+# kernel owns one chunk of rows, each of its warps one contiguous sub-chunk,
+# and keeps one counter a target a warp in shared memory; one block scans
+# the n · chunks (target, chunk) counts (csrc/ordered_scatter.cu).
+# ---------------------------------------------------------------------------
+
+SCATTER_MAX_WARPS = 8  # warps of a count / place block
+SCATTER_COUNTERS = 12_288  # target counters of a block, all its warps': 48 KB
+SCATTER_STEP = 256  # rows of a warp whose indices load at once (8 steps of 32)
+SCATTER_CHUNKS = 8 * 132  # chunks wanted: 8 blocks of 8 warps on each of 132 SMs
+SCATTER_STARTS = 16 * 1_024  # (target, chunk) counts, at most: two rounds of the scan
+
+
+class ScatterPlan(NamedTuple):
+    """The partition of ``E`` rows: ``chunks`` blocks of ``warps`` warps,
+    each warp ``sub`` rows in a row (the last chunk ragged)."""
+
+    warps: int
+    sub: int
+    chunks: int
+
+
+def scatter_plan(e: int, n: int) -> ScatterPlan:
+    """The plan for ``e`` rows into ``n`` targets: enough chunks to fill the
+    card, few enough that the scan takes two rounds, whole steps a warp."""
+    if not 1 <= n <= SCATTER_COUNTERS:
+        raise ValueError(f"ordered_scatter_add: 1 to {SCATTER_COUNTERS} targets, got {n}")
+    warps = min(SCATTER_MAX_WARPS, SCATTER_COUNTERS // n)
+    sub = max(-(-e // (warps * SCATTER_CHUNKS)), -(-e * n // (warps * SCATTER_STARTS)), 1)
+    sub = -(-sub // SCATTER_STEP) * SCATTER_STEP
+    return ScatterPlan(warps, sub, -(-e // (warps * sub)))
+
+
+def scatter_args(out: torch.Tensor, index: torch.Tensor, source: torch.Tensor):
+    """``(args, buffers)``: the C arguments of ``ordered_scatter_add`` (and
+    of its halves, ``ordered_scatter_partition`` / ``_fold``) on the card,
+    and the tensors they point into, to be kept alive until the launch; or
+    None when no row can land (no rows or no targets)."""
+    if out.device.type != "cuda":
+        raise ValueError(f"ordered_scatter_add runs on CPU or CUDA tensors, got {out.device}")
+    if out.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ordered_scatter_add: out in float32 or float64, got {out.dtype}")
+    if index.dtype.is_floating_point or index.dtype.is_complex or index.dtype == torch.bool:
+        raise TypeError(f"ordered_scatter_add: an integer index, got {index.dtype}")
+    n, e = out.shape[0], index.shape[0]
+    width = math.prod(out.shape[1:])
+    dev = out.device
+    _check("out", out, out.dtype, tuple(out.shape), dev)
+    _check("index", index, index.dtype, (e,), dev)
+    if source.shape[0] != e or source.numel() != e * width or source.device != dev:
+        raise ValueError(f"ordered_scatter_add: source {tuple(source.shape)} for {e} rows of "
+                         f"{width} on {dev}, got {source.device}")
+    if not 1 <= width <= 8:
+        raise ValueError(f"ordered_scatter_add: 1 to 8 columns a target row, got {width}")
+    if e >= 2**31:
+        raise ValueError(f"ordered_scatter_add: fewer than 2**31 rows, got {e}")
+    if e == 0 or n == 0:
+        return None
+    if index.dtype not in (torch.int32, torch.int64):
+        index = index.long()
+    if source.dtype not in (torch.float32, torch.float64):
+        source = source.to(out.dtype)
+    source = source.contiguous()
+    plan = scatter_plan(e, n)
+    # the fold copies 16-byte windows: room for one past the last row
+    part = torch.empty(e * width + 16 // out.element_size(), dtype=out.dtype, device=dev)
+    # counts, warp prefixes, offsets, kept rows a warp, the compacted rows and targets
+    warps = plan.chunks * plan.warps
+    scratch = torch.empty(n * plan.chunks + warps * n + n + 1 + warps + 2 * warps * plan.sub,
+                          dtype=torch.int32, device=dev)
+    args = (index.data_ptr(), int(index.dtype == torch.int64), source.data_ptr(),
+            int(source.dtype == torch.float64), e, n, width, int(out.dtype == torch.float64),
+            out.data_ptr(), part.data_ptr(), scratch.data_ptr(), *plan, _stream(dev))
+    return args, (index, source, part, scratch)
 
 
 def ordered_scatter_add(
@@ -459,38 +534,20 @@ def ordered_scatter_add(
 ) -> torch.Tensor:
     """``out[index[e]] += source[e]`` row by row in operand order, in place
     (np.add.at's order); rows whose index lies outside ``0 .. len(out) - 1``
-    are dropped.  float32 or float64 ``out`` of at most 8 columns a row.
-    Bit-identical to :func:`.ref.ordered_scatter_add`.
+    are dropped.  float32 or float64 ``out`` of at most 8 columns a row; on
+    the card at most :data:`SCATTER_COUNTERS` target rows.  Bit-identical to
+    :func:`.ref.ordered_scatter_add`.
 
-    On the card the rows are sorted stably by target (PyTorch's radix sort,
-    deterministic), each target's first row found by a binary search of the
-    sorted targets, and the kernel folds each target's rows in order.
-    Nothing here synchronises, so a call records into a CUDA graph.
+    On the card the kernel partitions the rows stably by target (counts,
+    scan, placement: the index read in place, each kept row converted to
+    ``out``'s type) and folds each target's rows in order from ``out``'s
+    value.  Nothing here synchronises, so a call records into a CUDA graph.
     """
     if out.device.type == "cpu" or plain:
         return ref.ordered_scatter_add(out, index, source)
-    if out.device.type != "cuda":
-        raise ValueError(f"ordered_scatter_add runs on CPU or CUDA tensors, got {out.device}")
-    if out.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"ordered_scatter_add: out in float32 or float64, got {out.dtype}")
-    n, e = out.shape[0], index.shape[0]
-    width = out[0].numel() if n else 1
-    dev = out.device
-    _check("out", out, out.dtype, tuple(out.shape), dev)
-    _check("index", index, index.dtype, (e,), dev)
-    if source.shape[0] != e or source.numel() != e * width or source.device != dev:
-        raise ValueError(f"ordered_scatter_add: source {tuple(source.shape)} for {e} rows of "
-                         f"{width} on {dev}, got {source.device}")
-    key = torch.where((index >= 0) & (index < n), index, n).to(_sort_dtype(n))
-    sorted_key, order = torch.sort(key, stable=True)  # the narrowest key: fewest radix passes
-    rows = source.reshape(e, width).to(out.dtype).index_select(0, order).contiguous()
-    targets = torch.arange(n + 1, dtype=torch.int32, device=dev)
-    offsets = torch.searchsorted(sorted_key.int(), targets)  # int64: each target's first row
-    _launch(
-        "ordered_scatter", "ordered_scatter_add",
-        rows.data_ptr(), offsets.data_ptr(), n, width, int(out.dtype == torch.float64),
-        out.data_ptr(), _stream(dev),
-    )
+    call = scatter_args(out, index, source)
+    if call is not None:
+        _launch("ordered_scatter", "ordered_scatter_add", *call[0])
     return out
 
 

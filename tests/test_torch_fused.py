@@ -430,26 +430,6 @@ def test_clock_chunks_match_the_reference_loop(cfg):
         assert torch.equal(before, after)
 
 
-def test_ordered_scatter_add_matches_numpy_add_at():
-    """The kernel wrapper's plain version adds in operand order: np.add.at,
-    bit for bit, in float32 and float64, rows out of range dropped, and
-    continuing from the values already there."""
-    rng = np.random.default_rng(0)
-    for dtype, width in ((np.float32, 1), (np.float64, 3)):
-        idx = rng.integers(-2, 26, 50_000)
-        src = (rng.uniform(-3, 5, (50_000, width)) * 10.0 ** rng.integers(-4, 5, (50_000, 1))
-               ).astype(dtype)
-        init = rng.uniform(-1, 1, (24, width)).astype(dtype)
-        want = init.copy()
-        keep = (idx >= 0) & (idx < 24)
-        np.add.at(want, idx[keep], src[keep])
-        got = ops.ordered_scatter_add(torch.from_numpy(init.copy()), torch.from_numpy(idx),
-                                      torch.from_numpy(src))
-        assert got.numpy().tobytes() == want.tobytes()
-        assert ref.ordered_scatter_add(torch.from_numpy(init.copy()), torch.from_numpy(idx),
-                                       torch.from_numpy(src)).numpy().tobytes() == want.tobytes()
-
-
 def test_recorded_reference_matches_the_port():
     """``tools/record_reference.py`` at 2,000 agents against the port's CPU
     runs, staged and fused: every recorded field of every epoch."""
