@@ -7,7 +7,7 @@ Builds the hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
 (five sources, one ``nvcc`` each, in parallel), holds each against its plain
 PyTorch version on the card, drives the port's main path at full size, and
 checks the main path on the card against itself through the plain versions.
-The main path is seven paths, each driven with the launch counts set to 0
+The main path is nine paths, each driven with the launch counts set to 0
 just before it and read just after: the 100k-agent §V economy (three binding
 epochs warm-started, three with cold restarts) through
 ``sparse_bid_eval_partials``, its epochs held bit for bit against the JAX
@@ -30,7 +30,17 @@ tick 3, every tick settled through ``sparse_bid_eval_partials`` and held
 against the JAX reference's run of the same CLI recorded in
 ``tools/service_100k_reference.json`` (prices, psi, rounds, flags,
 counters, health and the sha256 of every book array bit for bit; the
-payment-derived stats to rtol 1e-5), with each tick's stages timed.
+payment-derived stats to rtol 1e-5), with each tick's stages timed;
+and phase [8], the scenario engine: the nine library scenarios
+(``SCENARIOS[name](seed=3)``, their own epochs) and two scenarios on the
+100k economy (``flash_crowd``'s event stream, ``region_loss``'s fault model)
+through ``run_scenario``, every epoch settled through
+``sparse_bid_eval_partials`` and held against the JAX reference's runs
+recorded in ``tools/scenario_reference.json``, then the clock sharded over
+a one-rank NCCL process group (``sharded_clock_auction``, the collective
+captured in the clock's CUDA graph) held bit for bit against the unsharded
+clock and the 100k economy with ``settle_mesh`` against
+``tools/fleet_100k_reference.json``.
 Each kernel is then held against its plain version and timed at its path's
 shapes on its path's inputs (for ``wkv6``, the tensors layer 0 and layer 31
 hand it in the served prefill).  Phase [4] also provisions the quickstart
@@ -1783,6 +1793,163 @@ def service_path(torch, np, dev, kernels: list) -> None:
     del svc, resumed, book, args, csr, gathered
 
 
+# ---------------------------------------------------------------------------
+# [8] the scenario engine and sharded settlement
+# ---------------------------------------------------------------------------
+
+SCENARIO_REFERENCE = ROOT / "tools" / "scenario_reference.json"  # record_scenario_reference.py
+
+
+def scenario_paths(torch, np, dev, kernels: list, backend: str = "nccl") -> None:
+    """Phase [8]: (a) the nine library scenarios and (b) the two 100k
+    scenarios through the port's ``run_scenario`` on the card, each held
+    against ``tools/scenario_reference.json``; (c) the clock sharded over a
+    one-rank ``backend`` process group (a FileStore in a temporary
+    directory), held bit for bit against the unsharded clock and the 100k
+    recording → the partials entry gains both paths' launches."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import record_scenario_reference as rsr
+
+    from repro_torch import core as pt
+    from repro_torch.kernels import ops
+
+    want = json.loads(SCENARIO_REFERENCE.read_text())["runs"]
+    log(f"[8] scenarios: {', '.join(rsr.LIBRARY)} (seed 3, their own epochs) and "
+        f"{', '.join(rsr.AT_SCALE)} (fleet_economy(100_000, 8, seed=0), 6 epochs), staged, "
+        f"each held against the recorded JAX run")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    summary = {}
+    for name in rsr.CASES:
+        epochs = []
+        base = ops.launch_counts()["sparse_bid_eval_partials"]
+        captured = [ops.capture_stats()["seconds"]]
+
+        def on_epoch(eco, st, timing):
+            grew = (ops.launch_counts()["sparse_bid_eval_partials"] - base
+                    - sum(e[3] for e in epochs))
+            check(grew >= st.rounds + 1, f"{name}: {grew} launches for {st.rounds} rounds")
+            captured.append(ops.capture_stats()["seconds"])
+            epochs.append((timing["wall_ms"], timing["clock_ms"], st.rounds, grew,
+                           (captured[-1] - captured[-2]) * 1e3))
+
+        got = rsr.run_case(pt, name, sync=torch.cuda.synchronize, on_epoch=on_epoch, device=dev)
+        bad = rsr.mismatches(want[name], got)
+        check(not bad, f"scenario {name}: differs from the recorded reference: {bad}")
+        check(all(e["system_ok"] for e in got["epochs"]), f"scenario {name}: SYSTEM")
+        log(f"  {name}: {len(epochs)} epochs as recorded (prices, reserves, psi, chosen, "
+            f"placed, rounds, migrations, flags, util_spread, events bit for bit; payments "
+            f"within rtol 1e-5); epoch wall / clock ms (of which capturing), rounds, partials "
+            f"launches: " + "; ".join(f"{w:.1f} / {c:.1f} ({cap:.1f}), {r}, {n}"
+                                      for w, c, r, n, cap in epochs))
+        summary[name] = epochs
+        check(ops.launch_counts()["sparse_bid_eval_partials"] - base
+              == sum(e[3] for e in epochs), f"{name}: launches outside the epochs")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(sum(launches.values()) == launches["sparse_bid_eval_partials"] > 0,
+          f"scenarios: the partials kernel did not carry every epoch: {launches}")
+    log(f"  launches {launches}; CUDA graphs captured {ops.capture_stats()}")
+
+    log(f"[8] sharded settlement: a one-rank {backend} process group, the clock sharded over "
+        f"users (8 blocks), against the unsharded clock and the 100k recording")
+    with tempfile.TemporaryDirectory() as d:
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: no network
+        kw = ({"device_id": torch.device("cuda", torch.cuda.current_device())}
+              if backend == "nccl" else {})
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(d, "store"), 1),
+                                world_size=1, rank=0, **kw)
+        try:
+            mesh = pt.users_mesh()
+            check((mesh.size, mesh.rank) == (1, 0) and mesh.group is not None, f"mesh {mesh}")
+            probe = pt.fleet_economy(100_000, 8, seed=0, device=dev)
+            book = probe.pack_bid_book().problem
+            start = torch.from_numpy(np.asarray(
+                pt.reserve_prices(probe.pools(), probe.weighting), np.float32)).to(dev)
+
+            def clock(sharded):
+                torch.cuda.synchronize()
+                cap0, t0 = ops.capture_stats()["seconds"], time.perf_counter()
+                if sharded:
+                    res = pt.sharded_clock_auction(book, start, probe.clock, mesh=mesh)
+                else:
+                    res = pt.clock_auction(book, start, probe.clock,
+                                           demand_fn=ops.blocked_bid_demand_fn(8))
+                torch.cuda.synchronize()
+                return res, ((time.perf_counter() - t0) * 1e3,
+                             (ops.capture_stats()["seconds"] - cap0) * 1e3)
+
+            ops.reset_launch_counts()
+            turns = (False, True, True, False) * 3
+            runs = [clock(s) for s in turns]
+            clock_launches = ops.launch_counts()
+            (ru, _), (rs, _) = runs[0], runs[1]
+            for f in ("prices", "alloc_idx", "alloc_val", "chosen_bundle", "won", "payments",
+                      "excess_demand", "rounds", "converged"):
+                a, b = getattr(ru, f), getattr(rs, f)
+                same = same_bits(torch, a, b) if a.is_floating_point() else torch.equal(a, b)
+                check(same and a.shape == b.shape, f"sharded clock: {f} differs from unsharded")
+            rounds = int(rs.rounds)
+            for res, _ in runs[2:]:
+                check(torch.equal(res.prices, ru.prices), "a clock in turns moved its prices")
+            check(clock_launches["sparse_bid_eval_partials"] >= len(turns) * (rounds + 1),
+                  f"sharded clock: {clock_launches}")
+            times = [{"sharded": s, "ms": ms, "capture_ms": cap}
+                     for s, (_, (ms, cap)) in zip(turns, runs)]
+            per_round = {s: statistics.median((t["ms"] - t["capture_ms"]) / rounds * 1e3
+                                              for t in times if t["sharded"] == s)
+                         for s in (False, True)}
+            log(f"  epoch 0's book ({book.num_users} users): sharded clock bit-identical to the "
+                f"unsharded one (prices, allocations, chosen, won, payments, z, {rounds} rounds); "
+                f"in turns (U, S, S, U) x 3: "
+                + ", ".join(f"{'S' if t['sharded'] else 'U'} {t['ms']:.1f} ms "
+                            f"(capturing {t['capture_ms']:.1f})" for t in times)
+                + f"; median us a replayed round: unsharded {per_round[False]:.1f}, "
+                f"sharded {per_round[True]:.1f}")
+
+            eco = pt.fleet_economy(100_000, 8, seed=0, warm_start=True, settle_mesh=mesh,
+                                   device=dev)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            records, sharded_epochs = [], []
+            for epoch in range(3):
+                before = ops.launch_counts()["sparse_bid_eval_partials"]
+                t0 = time.perf_counter()
+                st = eco.run_epoch()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                grew = ops.launch_counts()["sparse_bid_eval_partials"] - before
+                check(grew >= st.rounds + 1, f"sharded epoch {epoch}: {grew} launches")
+                records.append(epoch_record(np, st, eco))
+                sharded_epochs.append((wall, st.rounds, grew))
+            check_reference("staged warm-started", records)
+            economy_launches = ops.launch_counts()
+            log(f"  fleet_economy(100_000, 8, seed=0, warm_start=True, settle_mesh=users_mesh()): "
+                f"epoch wall ms, rounds, partials launches: "
+                + "; ".join(f"{w:.1f}, {r}, {n}" for w, r, n in sharded_epochs)
+                + f"; launches {economy_launches}")
+        finally:
+            dist.destroy_process_group()
+    log("  NCCL is proven at one rank only: a world size above 1 needs a machine with "
+        "several GPUs")
+
+    entry = next(e for e in kernels if e["name"] == "sparse_bid_eval_partials")
+    sharded_launches = economy_launches["sparse_bid_eval_partials"]
+    entry["launches_scenarios"] = launches["sparse_bid_eval_partials"]
+    entry["launches_sharded_economy"] = sharded_launches
+    entry["launches"] += launches["sparse_bid_eval_partials"] + sharded_launches
+    entry["path"] += f", {len(rsr.CASES)} scenarios and the sharded economy (3 epochs)"
+    entry["scenarios"] = summary
+    entry["sharded"] = {"backend": backend, "world_size": 1, "clock_rounds": rounds,
+                        "clock_in_turns": times, "us_a_round": per_round,
+                        "economy_epochs": sharded_epochs}
+
+
 def run(torch, np) -> dict:
     from repro_torch.kernels import build
 
@@ -1806,6 +1973,9 @@ def run(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     service_path(torch, np, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scenario_paths(torch, np, dev, kernels)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

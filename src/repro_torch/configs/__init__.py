@@ -1,7 +1,7 @@
 """Architecture configs of the port (``--arch <id>``), the reference's ids.
 
 Only ``rwkv6-7b`` is ported; the other ids raise ``NotImplementedError``
-until ROADMAP queue 1, slice 9 ports their families.
+until ROADMAP queue 1, 'Model zoo and training' ports their families.
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ def _mod(arch: str):
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     if arch not in _PORTED:
         raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP queue 1, slice 9 (ported: {list(_PORTED)})"
+            f"{arch} is not ported yet: ROADMAP queue 1, 'Model zoo and training' "
+            f"(ported: {list(_PORTED)})"
         )
     return importlib.import_module(f".{_PORTED[arch]}", __package__)
 

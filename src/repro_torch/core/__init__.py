@@ -4,11 +4,14 @@
   CSRAuctionProblem and their packers and converters; MarketBook, the
   service's persistent book
 * reserve: congestion-weighted reserve curves
-* auction: clock_auction, ClockConfig, verify_system, surplus_and_trade
+* auction: clock_auction, ClockConfig, verify_system, surplus_and_trade;
+  sharded_clock_auction over a torch.distributed process group (users_mesh)
 * bidlang, policies, faults: numpy copies of the reference's modules
 * economy, markets: the §V multi-epoch economy and its builders
 * fused: the fused epoch program (pack → clock → settle → apply on the
   device, CUDA graphs on the card) behind ``Economy(fused=True)``
+* scenarios: event streams (outages, flash crowds, churn, price shocks)
+  run over the economy epoch by epoch, and the SCENARIOS library
 * state: an economy's state as a numpy tree, shared with the reference
 * provisioner: settled allocations → per-job device grants
 """
@@ -29,6 +32,7 @@ from .types import (
     operator_supply_bids,
     pack_bids,
     pack_bids_sparse,
+    pad_users,
     padded_from_csr,
     sparse_problem_from_arrays,
     sparse_supply_scale,
@@ -46,16 +50,20 @@ from .reserve import (
 from .auction import (
     ClockConfig,
     ClockLoop,
+    UsersMesh,
     blocked_demand_fn,
     bundle_costs,
     clock_auction,
     csr_proxy_demand,
     escalate_clock,
     proxy_demand,
+    sharded_clock_auction,
     sparse_bundle_costs,
     sparse_proxy_demand,
     sparse_proxy_demand_blocked,
+    sparse_proxy_demand_exact,
     surplus_and_trade,
+    users_mesh,
     verify_system,
 )
 from .bidlang import All, BundleExplosion, OneOf, Res, flatten, flatten_sparse, pool_index
@@ -77,6 +85,20 @@ from .policies import (
     StaticPolicy,
 )
 from .faults import FaultDraw, FaultModel
+from .scenarios import (
+    SCENARIOS,
+    Arrivals,
+    BaseCostChange,
+    CapacityShock,
+    Departures,
+    EventReport,
+    FlashCrowd,
+    RoundStarvedWarning,
+    Scenario,
+    ScenarioResult,
+    WeightingSwap,
+    run_scenario,
+)
 from .state import economy_state, load_economy_state
 from .provisioner import DeviceGrant, grant_to_mesh, grants_from_allocation, plan_mesh_shape
 
@@ -85,20 +107,24 @@ __all__ = [
     "SparseAuctionProblem", "SparseAuctionResult",
     "as_device", "bundle_cluster_costs", "csr_from_padded", "csr_padded_views",
     "csr_problem_from_arrays", "densify", "operator_supply_bids", "pack_bids",
-    "pack_bids_sparse", "padded_from_csr", "sparse_problem_from_arrays", "sparse_supply_scale",
-    "sparsify",
+    "pack_bids_sparse", "pad_users", "padded_from_csr", "sparse_problem_from_arrays",
+    "sparse_supply_scale", "sparsify",
     "CURVE_FAMILIES", "DEFAULT_WEIGHTING", "ExpWeighting", "LogisticWeighting",
     "PiecewisePowerWeighting", "reputation_weighted_reserve", "reserve_prices",
-    "ClockConfig", "ClockLoop", "blocked_demand_fn", "bundle_costs", "clock_auction", "csr_proxy_demand",
-    "escalate_clock", "proxy_demand",
+    "ClockConfig", "ClockLoop", "UsersMesh", "blocked_demand_fn", "bundle_costs", "clock_auction",
+    "csr_proxy_demand",
+    "escalate_clock", "proxy_demand", "sharded_clock_auction",
     "sparse_bundle_costs", "sparse_proxy_demand", "sparse_proxy_demand_blocked",
-    "surplus_and_trade", "verify_system",
+    "sparse_proxy_demand_exact", "surplus_and_trade", "users_mesh", "verify_system",
     "All", "BundleExplosion", "OneOf", "Res", "flatten", "flatten_sparse", "pool_index",
     "Agent", "AgentPopulation", "Economy", "EpochStats", "make_fleet_economy",
     "DeviceMarketState", "FusedEpoch", "build_fused_epoch", "fused_program_cache_size",
     "fleet_economy", "fleet_population", "random_market",
     "POLICY_REGISTRY", "BidderPolicy", "BudgetSmoothingPolicy", "Observation", "PolicyAction",
     "PriceChasingPolicy", "StaticPolicy", "FaultDraw", "FaultModel",
+    "SCENARIOS", "Arrivals", "BaseCostChange", "CapacityShock", "Departures", "EventReport",
+    "FlashCrowd", "RoundStarvedWarning", "Scenario", "ScenarioResult", "WeightingSwap",
+    "run_scenario",
     "economy_state", "load_economy_state",
     "DeviceGrant", "grant_to_mesh", "grants_from_allocation", "plan_mesh_shape",
 ]

@@ -13,7 +13,8 @@ the device.  Rounds after convergence are no-ops, as in the reference's
 round; on the card those rounds replay as one CUDA graph (:class:`ClockLoop`,
 :func:`_run_clock`).  Demand evaluation is the only thing that differs between
 settlement paths: the plain folds here, or the kernels in
-:mod:`repro_torch.kernels.ops`.  Multi-device settlement is not ported yet.
+:mod:`repro_torch.kernels.ops`.  :func:`sharded_clock_auction` runs the same
+clock with the bidders split over a ``torch.distributed`` process group.
 
 Dense problems (``AuctionProblem``, the paper's §III encoding) evaluate
 demand in O(U·B·R) through ``bid_eval`` and settle to an ``AuctionResult``;
@@ -26,6 +27,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels import ops, ref
 from .types import (
@@ -35,6 +37,8 @@ from .types import (
     SparseAuctionProblem,
     SparseAuctionResult,
     csr_padded_views,
+    pad_users,
+    padded_from_csr,
 )
 
 # dense demand_fn(bundles, mask, pi, prices)
@@ -92,18 +96,44 @@ def sparse_proxy_demand(idx, val, mask, pi, prices, num_resources: int):
 sparse_proxy_demand.sparse_signature = True  # type: ignore[attr-defined]
 
 
+def sparse_proxy_demand_exact(idx, val, mask, pi, prices, num_resources: int):
+    """Bit-compatible twin of :func:`sparse_proxy_demand`: the selected
+    bundles become (U, R) demand rows (:func:`ref.user_rows`, the reference's
+    ``_user_rows``), column-summed as the reference sums them.
+
+    That column sum is XLA's reduce of one block of U rows, fused with the
+    row producer: the fold of :func:`ref.block_partials` with one block.
+    """
+    sel_idx, sel_val, chosen, active = ref.select_padded(idx, val, mask, pi, prices)
+    return ref.block_partials(sel_idx, sel_val, num_resources, 1)[0], chosen, active
+
+
+sparse_proxy_demand_exact.sparse_signature = True  # type: ignore[attr-defined]
+sparse_proxy_demand_exact.exact_settlement = True  # type: ignore[attr-defined]
+
+
+def _blocked_demand_parts(idx, val, mask, pi, prices, num_resources: int, num_blocks: int):
+    """(block partials (num_blocks, R), chosen, active): what a rank of the
+    sharded clock computes on its own blocks."""
+    sel_idx, sel_val, chosen, active = ref.select_padded(idx, val, mask, pi, prices)
+    partials = ref.block_partials(sel_idx, sel_val, num_resources, num_blocks)
+    return partials, chosen, active
+
+
 def sparse_proxy_demand_blocked(idx, val, mask, pi, prices, num_resources: int,
                                 num_blocks: int = 8):
     """Settlement-grade demand: z is the fixed left fold of ``num_blocks``
     contiguous user-block partials, each folded in the reference's order —
     bit-identical to ``repro.core.auction.sparse_proxy_demand_blocked``."""
-    sel_idx, sel_val, chosen, active = ref.select_padded(idx, val, mask, pi, prices)
-    partials = ref.block_partials(sel_idx, sel_val, num_resources, num_blocks)
+    partials, chosen, active = _blocked_demand_parts(
+        idx, val, mask, pi, prices, num_resources, num_blocks
+    )
     return ref.chain_sum(partials), chosen, active
 
 
 sparse_proxy_demand_blocked.sparse_signature = True  # type: ignore[attr-defined]
 sparse_proxy_demand_blocked.exact_settlement = True  # type: ignore[attr-defined]
+sparse_proxy_demand_blocked.partials_fn = _blocked_demand_parts  # type: ignore[attr-defined]
 sparse_proxy_demand_blocked.num_blocks = 8  # type: ignore[attr-defined]
 
 
@@ -119,6 +149,7 @@ def blocked_demand_fn(num_blocks: int = 8) -> DemandFn:
 
     fn.sparse_signature = True  # type: ignore[attr-defined]
     fn.exact_settlement = True  # type: ignore[attr-defined]
+    fn.partials_fn = _blocked_demand_parts  # type: ignore[attr-defined]
     fn.num_blocks = num_blocks  # type: ignore[attr-defined]
     return fn
 
@@ -489,6 +520,165 @@ def _clock_auction_csr_native(problem, start_prices, config, demand_fn) -> Spars
         won=active, payments=payments, excess_demand=z, rounds=rounds,
         converged=(z <= config.tol).all(),
     )
+
+
+# ---------------------------------------------------------------------------
+# Multi-device settlement: the clock sharded over users
+# ---------------------------------------------------------------------------
+
+# torch 2.13 renamed all_gather_into_tensor (same arguments)
+_all_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class UsersMesh:
+    """The users axis of a sharded clock: a process group, its size and this
+    process's rank in it.  ``group=None`` is one rank with no process group:
+    every gather returns its input."""
+
+    group: object
+    size: int
+    rank: int
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along axis 0, in rank order."""
+        if self.group is None:
+            return t
+        out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))
+        _all_gather_into(out, t.contiguous(), group=self.group)
+        return out
+
+
+def users_mesh(group=None) -> UsersMesh:
+    """The users axis over a ``torch.distributed`` process group (default:
+    the WORLD group).  Without an initialised process group it is one rank,
+    on this process's device.
+
+    Each process of the group runs the same program on its own device
+    (``cuda:<local rank>`` with NCCL, the CPU with gloo); the caller
+    initialises the group (``init_process_group``) with its address, world
+    size and rank.
+    """
+    if not (dist.is_available() and dist.is_initialized()):
+        if group is not None:
+            raise ValueError("users_mesh: a process group was given, but torch.distributed "
+                             "is not initialised")
+        return UsersMesh(None, 1, 0)
+    group = dist.group.WORLD if group is None else group
+    return UsersMesh(group, dist.get_world_size(group), dist.get_rank(group))
+
+
+def _sharded_clock_impl(problem: SparseAuctionProblem, start_prices, config: ClockConfig,
+                        demand_fn: DemandFn, mesh: UsersMesh, num_blocks: int):
+    num_users, num_res = problem.num_users, problem.num_resources
+    pi = problem.pi
+    if config.break_ties:
+        pi = _apply_tie_jitter(pi, config)  # global user index, before the padding
+
+    # Pad users to a multiple of num_blocks (hence of the world size): padded
+    # rows never activate and add exact zeros.  This rank holds the
+    # contiguous blocks [rank·nb/world, (rank+1)·nb/world).
+    padded = pad_users(dataclasses.replace(problem, pi=pi), num_blocks)
+    per = padded.num_users // mesh.size
+    mine = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    idx, val, mask, pi = (t[mine] for t in (padded.idx, padded.val, padded.bundle_mask,
+                                            padded.pi))
+    partials_fn = getattr(demand_fn, "partials_fn", None)
+    local_blocks = num_blocks // mesh.size
+
+    def demand(prices):
+        if partials_fn is not None:
+            partials, chosen, active = partials_fn(
+                idx, val, mask, pi, prices, num_res, local_blocks
+            )
+        else:
+            z_local, chosen, active = demand_fn(idx, val, mask, pi, prices, num_res)
+            partials = z_local[None]
+        # every rank's block partials in rank order, then the fixed left fold
+        # the unsharded blocked proxy runs: the same z on every rank, so every
+        # rank runs the same rounds
+        return ref.chain_sum(mesh.all_gather(partials)), chosen, active
+
+    rounds, prices = _run_clock(
+        lambda p: demand(p)[0], start_prices, config, problem.base_cost, problem.supply_scale
+    )
+    z, chosen, active = demand(prices)
+    alloc_idx, alloc_val, payments = _sparse_settle(
+        idx, val, prices, chosen, active, num_res,
+        exact=bool(getattr(demand_fn, "exact_settlement", False)),
+    )
+    users = slice(0, num_users)
+    return SparseAuctionResult(
+        prices=prices,
+        alloc_idx=mesh.all_gather(alloc_idx)[users],
+        alloc_val=mesh.all_gather(alloc_val)[users],
+        chosen_bundle=mesh.all_gather(chosen)[users],
+        won=mesh.all_gather(active.to(torch.uint8))[users].bool(),
+        payments=mesh.all_gather(payments)[users],
+        excess_demand=z, rounds=rounds, converged=(z <= config.tol).all(),
+    )
+
+
+def sharded_clock_auction(
+    problem: SparseAuctionProblem | CSRAuctionProblem,
+    start_prices: torch.Tensor,
+    config: ClockConfig = ClockConfig(),
+    demand_fn: DemandFn | None = None,
+    mesh: UsersMesh | None = None,
+    num_blocks: int = 8,
+) -> SparseAuctionResult:
+    """Run Algorithm 1 with the bidders sharded over a process group.
+
+    The book is padded to a multiple of ``num_blocks`` users and split into
+    contiguous blocks, ``num_blocks // world`` a rank.  Each round every rank
+    evaluates its blocks' partials (the default demand fn's
+    ``sparse_bid_eval_partials`` on CUDA tensors, its plain version on CPU
+    tensors), all-gathers them into ``(num_blocks, R)`` in rank order and
+    folds them with the same fixed left fold as the unsharded blocked proxy
+    — so prices, allocations and payments at every world size dividing
+    ``num_blocks`` are those of the reference's sharded clock, bit for bit.
+    A demand fn with no ``partials_fn`` adds one partial a rank.  Every rank
+    returns the whole result, cut back to ``num_users``.
+
+    On the card each chunk of rounds, the collective included, replays as
+    one CUDA graph; on the CPU (gloo) the chunks run eagerly.
+    ``mesh=None`` takes :func:`users_mesh`.
+    """
+    if isinstance(problem, CSRAuctionProblem):
+        # variable-length CSR rows do not split evenly; shard the exact padded
+        # reconstruction instead
+        problem = padded_from_csr(problem)
+    if not isinstance(problem, SparseAuctionProblem):
+        raise TypeError(
+            "sharded_clock_auction needs a SparseAuctionProblem — dense "
+            "(U, B, R) bundles would shard U·B·R bytes per round; sparsify() "
+            "first"
+        )
+    if mesh is None:
+        mesh = users_mesh()
+    ndev = mesh.size
+    if num_blocks < 1:
+        raise ValueError(f"num_blocks={num_blocks} must be >= 1")
+    if demand_fn is None:
+        demand_fn = ops.blocked_bid_demand_fn(num_blocks)
+    if not getattr(demand_fn, "sparse_signature", False):
+        raise TypeError(f"demand_fn {demand_fn} is not a sparse demand fn")
+    fn_blocks = getattr(demand_fn, "num_blocks", None)
+    if fn_blocks is not None and fn_blocks != num_blocks:
+        raise ValueError(
+            f"demand_fn folds z over {fn_blocks} user blocks but "
+            f"num_blocks={num_blocks} was requested — the sharded fold would "
+            "silently diverge from the fn's own single-device fold; pass "
+            f"num_blocks={fn_blocks} (or demand_fn=blocked_demand_fn("
+            f"{num_blocks}))"
+        )
+    if num_blocks % ndev:
+        raise ValueError(
+            f"device count {ndev} must divide num_blocks={num_blocks} so each "
+            "shard holds whole user blocks (that is what keeps settlement "
+            "bit-identical across device counts)"
+        )
+    return _sharded_clock_impl(problem, start_prices, config, demand_fn, mesh, num_blocks)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Multi-epoch market economy (paper §V), staged settlement on one device.
+"""Multi-epoch market economy (paper §V), staged settlement on the device.
 
 Counterpart of ``repro.core.economy``: engineering teams hold resources in
 clusters, enter buy/sell bids each epoch, and a clock auction with
@@ -23,7 +23,8 @@ with the next epoch's device work in :meth:`Economy.run_horizon`.
 (the parity oracle of the vectorized packer).  ``export_bid_rows`` and
 ``drain_bid_deltas`` bridge the economy to the always-on
 :class:`~repro_torch.serve.market.MarketService` over stable agent uids.
-Settlement runs on one device.
+With ``settle_mesh`` (or an initialised process group of several ranks) the
+staged clock runs sharded over users (:func:`.auction.sharded_clock_auction`).
 """
 from __future__ import annotations
 
@@ -32,13 +33,17 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels import ops
 from .auction import (
     ClockConfig,
+    UsersMesh,
     clock_auction,
     escalate_clock,
+    sharded_clock_auction,
     surplus_and_trade,
+    users_mesh,
     verify_system,
 )
 from .faults import FaultDraw, FaultModel
@@ -400,6 +405,7 @@ class Economy:
         weighting: WeightingFn = DEFAULT_WEIGHTING,
         clock: ClockConfig = ClockConfig(),
         seed: int = 0,
+        settle_mesh: UsersMesh | None = None,
         settle_blocks: int = 8,
         packer: str = "vectorized",
         warm_start: bool = False,
@@ -433,8 +439,12 @@ class Economy:
         # Settlement demand: z is a fixed left fold over settle_blocks
         # contiguous user blocks (the partials-mode kernel on the card, its
         # plain version on the CPU), bit-identical to the reference's
-        # blocked proxy.  One device, always: multi-GPU settlement is ROADMAP
-        # queue 1, item "Multi-GPU settlement".
+        # blocked proxy.  Multi-device settlement: shard the clock over users
+        # on this mesh (None → auto: the whole process group whenever one of
+        # several ranks is initialised and its size divides settle_blocks);
+        # settlement is bit-identical across world sizes dividing
+        # settle_blocks.
+        self.settle_mesh = settle_mesh
         self.settle_blocks = settle_blocks
         self.demand_fn = ops.blocked_bid_demand_fn(settle_blocks)
         # Warm starts: seed each clock with max(p_prev, reserve) instead of
@@ -499,6 +509,11 @@ class Economy:
             raise ValueError(
                 "pipeline=True requires policies=None and faults=None: both mutate host state "
                 "the next epoch's inputs depend on, which would serialize the pipeline anyway"
+            )
+        if fused and settle_mesh is not None:
+            raise ValueError(
+                "fused=True runs unsharded (parity with the staged path "
+                "holds at any device count); drop settle_mesh"
             )
         if fused and packer != "vectorized":
             raise ValueError(
@@ -1442,14 +1457,24 @@ class Economy:
             0 if draw is None or draw.dropout is None else int(draw.dropout.sum())
         )
 
-        # Settlement demand: the blocked fold (see __init__).  Start prices
-        # cross to the device as float32, where the reference's device
-        # arrays hold them.
+        # Settlement demand: the blocked fold (see __init__), sharded over
+        # users on the settle mesh.  Start prices cross to the device as
+        # float32, where the reference's device arrays hold them.
+        mesh = self.settle_mesh
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        if mesh is None and world > 1 and self.settle_blocks % world == 0:
+            mesh = users_mesh()  # auto-shard over the whole process group
         warm = self.warm_start and bool(self.price_history)
         seed = self._warm_seed(np.asarray(tilde_p)) if warm else tilde_p
         start = self._to_device(seed)
 
-        result = clock_auction(problem, start, self.clock, demand_fn=self.demand_fn)
+        def run_clock(cfg, start_prices):
+            if mesh is not None:
+                return sharded_clock_auction(problem, start_prices, cfg, demand_fn=self.demand_fn,
+                                             mesh=mesh, num_blocks=self.settle_blocks)
+            return clock_auction(problem, start_prices, cfg, demand_fn=self.demand_fn)
+
+        result = run_clock(self.clock, start)
         # bounded-retry escalation: a round-starved clock is re-run with a
         # doubled budget and the adaptive schedule on, continuing from the
         # truncated trajectory (sound: the clock is ascending-only)
@@ -1458,7 +1483,7 @@ class Economy:
         while not bool(result.converged) and escalations < self.clock_retries:
             escalations += 1
             cfg = escalate_clock(cfg)
-            result = clock_auction(problem, result.prices, cfg, demand_fn=self.demand_fn)
+            result = run_clock(cfg, result.prices)
         sys_ok = all(verify_system(problem, result).values())
         surplus, trade = surplus_and_trade(problem, result)
 

@@ -459,6 +459,28 @@ def pack_bids(
     )
 
 
+def pad_users(problem: SparseAuctionProblem, multiple: int) -> SparseAuctionProblem:
+    """Zero-pad the user axis up to a multiple of ``multiple`` (on the
+    problem's device).
+
+    Padded rows carry ``bundle_mask=False``, so their proxies never activate
+    and they add exact +0.0 everywhere: settlement of the first
+    ``num_users`` rows is unchanged.  ``sharded_clock_auction`` evens out
+    the user axis this way before splitting it over a process group.
+    """
+    pad = -problem.num_users % multiple
+    if pad == 0:
+        return problem
+
+    def grow(t: torch.Tensor) -> torch.Tensor:
+        return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+
+    return dataclasses.replace(
+        problem, idx=grow(problem.idx), val=grow(problem.val),
+        bundle_mask=grow(problem.bundle_mask), pi=grow(problem.pi),
+    )
+
+
 def sparsify(problem: AuctionProblem, k_max: int | None = None) -> SparseAuctionProblem:
     """Dense → K-padded conversion on the host; nonzeros keep ascending pool
     order.  ``k_max`` below the densest bundle's nnz raises."""

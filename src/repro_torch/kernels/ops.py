@@ -667,16 +667,23 @@ def sparse_bid_demand_fn(plain: bool = False):
 def blocked_bid_demand_fn(num_blocks: int = 8, plain: bool = False):
     """Settlement demand fn: the partials-mode kernel plus the fixed left fold
     over blocks — the kernel-backed twin of
-    :func:`repro_torch.core.auction.sparse_proxy_demand_blocked`, bit for bit."""
+    :func:`repro_torch.core.auction.sparse_proxy_demand_blocked`, bit for bit.
+    Its ``partials_fn`` is the kernel's partials alone, at a given block
+    count: a rank of the sharded clock calls it on its own blocks."""
+
+    def partials(idx, val, mask, pi, prices, num_resources, blocks):
+        parts, chosen = sparse_bid_eval(
+            idx, val, mask, pi, prices, num_resources, blocks, plain=plain
+        )
+        return parts, chosen, chosen >= 0
 
     def demand(idx, val, mask, pi, prices, num_resources):
-        partials, chosen = sparse_bid_eval(
-            idx, val, mask, pi, prices, num_resources, num_blocks, plain=plain
-        )
-        return ref.chain_sum(partials), chosen, chosen >= 0
+        parts, chosen, active = partials(idx, val, mask, pi, prices, num_resources, num_blocks)
+        return ref.chain_sum(parts), chosen, active
 
     demand.sparse_signature = True  # type: ignore[attr-defined]
     demand.exact_settlement = True  # type: ignore[attr-defined]
+    demand.partials_fn = partials  # type: ignore[attr-defined]
     demand.num_blocks = num_blocks  # type: ignore[attr-defined]
     return demand
 

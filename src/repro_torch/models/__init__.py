@@ -1,6 +1,6 @@
 """Model zoo of the port (``repro.models``' counterpart): configuration,
 parameter declarations, shared layers and the RWKV-6 family.  The other
-families come with ROADMAP queue 1, slice 9."""
+families come with ROADMAP queue 1, "Model zoo and training"."""
 from .config import (
     EncDecCfg,
     GriffinCfg,

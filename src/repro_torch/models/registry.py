@@ -32,7 +32,8 @@ def _lm_prefill(params, batch, cfg: ModelConfig):
 
 
 def _lm_loss(params, batch, cfg: ModelConfig, *args, **kwargs):
-    raise NotImplementedError("training is not ported yet: ROADMAP queue 1, slice 9")
+    raise NotImplementedError(
+        "training is not ported yet: ROADMAP queue 1, 'Model zoo and training'")
 
 
 _LM_API = ModelAPI(
@@ -47,7 +48,8 @@ _LM_API = ModelAPI(
 def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "audio":
         raise NotImplementedError(
-            f"the audio family ({cfg.name}) is not ported yet: ROADMAP queue 1, slice 9"
+            f"the audio family ({cfg.name}) is not ported yet: "
+            "ROADMAP queue 1, 'Model zoo and training'"
         )
     return _LM_API
 
@@ -60,7 +62,8 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
     if cfg.family == "audio" or cfg.vlm_patches:
         raise NotImplementedError(
-            f"{cfg.name}'s inputs are not ported yet: ROADMAP queue 1, slice 9"
+            f"{cfg.name}'s inputs are not ported yet: "
+            "ROADMAP queue 1, 'Model zoo and training'"
         )
     return {
         "tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev),

@@ -5,7 +5,7 @@ Parameters and the decode cache keep the reference's trees: per-layer
 leaves stacked on a leading ``num_layers`` axis, weights ``(in, out)``,
 activations ``(B, S, D)``.  A Python loop over the layers stands in for
 ``lax.scan``.  The other families raise ``NotImplementedError`` until
-ROADMAP queue 1, slice 9 ports them.
+ROADMAP queue 1, 'Model zoo and training' ports them.
 
   lm_decls(cfg)                             → ParamDecl tree
   lm_forward(params, tokens, cfg)           → (logits, aux, hidden)
@@ -27,7 +27,8 @@ from .rwkv import rwkv_block, rwkv_block_decls, rwkv_init_state
 
 def _not_ported(cfg: ModelConfig) -> NotImplementedError:
     return NotImplementedError(
-        f"the {cfg.family!r} family ({cfg.name}) is not ported yet: ROADMAP queue 1, slice 9"
+        f"the {cfg.family!r} family ({cfg.name}) is not ported yet: "
+        "ROADMAP queue 1, 'Model zoo and training'"
     )
 
 

@@ -69,7 +69,8 @@ def generate(
     """
     if cfg.family in _TOKEN_BY_TOKEN_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet: ROADMAP queue 1, slice 9"
+            f"the {cfg.family!r} family is not ported yet: "
+            "ROADMAP queue 1, 'Model zoo and training'"
         )
     if max_new < 1:
         raise ValueError(f"max_new must be at least 1, got {max_new}")

@@ -17,6 +17,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 _PROBE = """
 import json, sys
 import repro_torch, repro_torch.core, repro_torch.core.provisioner, repro_torch.core.fused
+import repro_torch.core.scenarios, repro_torch.core.auction
 import repro_torch.kernels.ops, repro_torch.kernels.build
 import repro_torch.models, repro_torch.models.convert, repro_torch.configs
 import repro_torch.serve.decode, repro_torch.launch.serve
@@ -86,3 +87,15 @@ def test_service_entry_points_without_a_gpu_raise(monkeypatch):
     assert svc.tick().bids_submitted == 1 and "a" in svc.book
     assert svc.book.device.type == "cpu"
     assert pt.MarketBook(base, 2, 2, device="cpu").device.type == "cpu"
+
+
+def test_scenarios_and_sharded_settlement_without_a_gpu(monkeypatch):
+    """Every scenario builder defaults to the card; a one-rank mesh needs no
+    process group."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, builder in pt.SCENARIOS.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            builder()
+        eco, sc = builder(device="cpu")
+        assert eco.device.type == "cpu" and sc.name == name
+    assert pt.users_mesh() == pt.UsersMesh(None, 1, 0)
