@@ -7,7 +7,7 @@ Builds the hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
 (five sources, one ``nvcc`` each, in parallel), holds each against its plain
 PyTorch version on the card, drives the port's main path at full size, and
 checks the main path on the card against itself through the plain versions.
-The main path is nine paths, each driven with the launch counts set to 0
+The main path is its paths, each driven with the launch counts set to 0
 just before it and read just after: the 100k-agent §V economy (three binding
 epochs warm-started, three with cold restarts) through
 ``sparse_bid_eval_partials``, its epochs held bit for bit against the JAX
@@ -40,7 +40,17 @@ recorded in ``tools/scenario_reference.json``, then the clock sharded over
 a one-rank NCCL process group (``sharded_clock_auction``, the collective
 captured in the clock's CUDA graph) held bit for bit against the unsharded
 clock and the 100k economy with ``settle_mesh`` against
-``tools/fleet_100k_reference.json``.
+``tools/fleet_100k_reference.json``;
+and phase [9], the dense family and training: ``qwen3-1.7b`` at full width
+and depth (float32 weights from seed 0, bf16 activations) serving 4
+requests of 128 prompt tokens and 32 greedy new ones, trained through
+``launch/train`` for 6 steps at batch 4 x 512 and again with checkpoints
+every 3 steps, killed by ``--fault-step`` and resumed, its steps timed by
+part; one train step at full width and 2 layers on the card against the
+CPU; and the example twins on the card (``elastic_train_torch.py
+--production``, its two auctions through ``bid_eval``; ``quickstart_torch.py``
+through ``bid_eval``; ``market_sim_torch.py`` and
+``market_service_demo_torch.py`` through ``sparse_bid_eval_partials``).
 Each kernel is then held against its plain version and timed at its path's
 shapes on its path's inputs (for ``wkv6``, the tensors layer 0 and layer 31
 hand it in the served prefill).  Phase [4] also provisions the quickstart
@@ -1950,6 +1960,440 @@ def scenario_paths(torch, np, dev, kernels: list, backend: str = "nccl") -> None
                         "economy_epochs": sharded_epochs}
 
 
+# ---------------------------------------------------------------------------
+# [9] the dense family and training
+# ---------------------------------------------------------------------------
+
+DENSE_ARCH = "qwen3-1.7b"
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 4, 128, 32
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAULT = 4, 512, 6, 3, 4
+RESUME_RTOL = 1e-4  # resumed losses: CUDA's embedding backward adds with atomics, in any order
+START_RTOL = 1e-5  # the CLI's first loss against the model's loss of the same weights and batch
+CARD_CPU_BATCH, CARD_CPU_SEQ, CARD_CPU_LR = 2, 64, 3e-4
+CARD_CPU_LOSS_RTOL = 1e-3  # bf16 activations: a product rounds the other way now and then
+CARD_CPU_NORM_RTOL = 1e-2
+CARD_CPU_FLIP_SHARE = 1e-2  # parameters whose first Adam step took the other sign
+
+
+def captured(fn, *args):
+    """``fn(*args)``'s return value and its standard output, each line
+    echoed to ours."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(*args)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    return rc, lines
+
+
+def dense_serving(torch, dev) -> dict:
+    """(a) qwen3-1.7b at full width and depth serves DENSE_BATCH requests of
+    DENSE_PROMPT tokens and DENSE_NEW greedy new ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_api
+    from repro_torch.models.params import count_params, init_params, tree_bytes
+    from repro_torch.serve.decode import generate
+
+    cfg = get_config(DENSE_ARCH)
+    api = get_api(cfg)
+    n_params = count_params(api.decls(cfg))
+    log(f"[9a] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"query / {cfg.num_kv_heads} KV heads of {cfg.hd()}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, activations {cfg.act_dtype}, "
+        f"{n_params:,} float32 parameters from seed 0")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
+                         torch.float32, dev)
+    weight_bytes = tree_bytes(params)
+    prompt = torch.randint(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompt, DENSE_NEW)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(tuple(out.shape) == (DENSE_BATCH, DENSE_PROMPT + DENSE_NEW)
+          and torch.equal(out[:, :DENSE_PROMPT], prompt.to(torch.int32))
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generated tokens")
+    check(sum(launches.values()) == 0, f"a market kernel ran on the serving path: {launches}")
+    log(f"  generate {DENSE_BATCH} x ({DENSE_PROMPT} prompt + {DENSE_NEW} new) greedy: "
+        f"{serve_s * 1e3:.1f} ms ({DENSE_BATCH * DENSE_NEW / serve_s:.1f} new tok/s, the first "
+        f"call's warm-up included); request 0 continues with {out[0, DENSE_PROMPT:].tolist()}")
+
+    # prefill and decode timed apart: the same tokens come out
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = api.init_cache(cfg, DENSE_BATCH, DENSE_PROMPT + DENSE_NEW, device=dev)
+        logits, cache = api.decode_step(params, cache, prompt, 0, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(logits.float()).all())
+              and tuple(logits.shape) == (DENSE_BATCH, DENSE_PROMPT, cfg.vocab_size),
+              "prefill logits")
+        cur = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+        toks = [cur]
+        t0 = time.perf_counter()
+        for i in range(DENSE_PROMPT, DENSE_PROMPT + DENSE_NEW - 1):
+            logits, cache = api.decode_step(params, cache, cur, i, cfg)
+            cur = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(cur)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (DENSE_NEW - 1)
+        check(torch.equal(torch.cat(toks, 1), out[:, DENSE_PROMPT:]),
+              "a second run gives other tokens")
+        step_ms = graph_ms(torch, lambda: api.decode_step(params, cache, cur, DENSE_PROMPT, cfg),
+                           DECODE_GRAPH_CALLS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    prefill_bound_ms = 2 * n_params * DENSE_BATCH * DENSE_PROMPT / FP32_OPS_PER_S * 1e3
+    log(f"  prefill {DENSE_BATCH} x {DENSE_PROMPT}: {prefill_ms:.1f} ms "
+        f"({DENSE_BATCH * DENSE_PROMPT / prefill_ms * 1e3:.0f} prompt tok/s; float32 product "
+        f"bound {prefill_bound_ms:.1f} ms); decode {decode_ms:.2f} ms a step of {DENSE_BATCH} "
+        f"tokens ({DENSE_BATCH / decode_ms * 1e3:.1f} tok/s), of which {step_ms:.2f} ms on the "
+        f"card (a CUDA graph of the step; idle {1 - step_ms / decode_ms:.1%}); weight-read bound "
+        f"{decode_bound_ms:.2f} ms ({weight_bytes / 1e9:.2f} GB); peak {peak_gb:.2f} GB")
+
+    # chunked prefill against a token-by-token warm-up, float32 activations,
+    # request 0: every position's logits
+    cfg32 = cfg.replace(act_dtype="float32")
+    with torch.inference_mode():
+        one = prompt[:1]
+        chunked, _ = api.decode_step(params, api.init_cache(cfg32, 1, DENSE_PROMPT, device=dev),
+                                     one, 0, cfg32)
+        cache = api.init_cache(cfg32, 1, DENSE_PROMPT, device=dev)
+        steps = []
+        for i in range(DENSE_PROMPT):
+            step_logits, cache = api.decode_step(params, cache, one[:, i:i + 1], i, cfg32)
+            steps.append(step_logits[:, 0])
+        stepped = torch.stack(steps, dim=1)
+        per_pos = (chunked - stepped).abs().amax(dim=(0, 2))
+        scale = float(stepped.abs().max())
+        last = float(per_pos[-1])
+    check(float(per_pos.max()) <= LOGITS_TOL * scale,
+          f"chunked prefill vs token-by-token: max|d| {float(per_pos.max())} (max {scale})")
+    log(f"  chunked prefill vs token-by-token warm-up, float32 activations, {DENSE_PROMPT} "
+        f"positions: last position's max|d logits| {last:.3g}, worst {float(per_pos.max()):.3g} "
+        f"(position {int(per_pos.argmax())}) of max|logits| {scale:.4g} (limit {LOGITS_TOL} x)")
+    del params, cache, chunked, stepped, logits
+    return {"params": n_params, "weight_gb": weight_bytes / 1e9, "serve_ms": serve_s * 1e3,
+            "prefill_ms": prefill_ms, "prefill_bound_ms": prefill_bound_ms,
+            "decode_ms_per_step": decode_ms, "decode_device_ms_per_step": step_ms,
+            "decode_bound_ms": decode_bound_ms, "decode_tok_s": DENSE_BATCH / decode_ms * 1e3,
+            "peak_gb": peak_gb, "chunked_vs_stepped_last": last, "logits_scale": scale,
+            "launches": launches}
+
+
+def dense_training(torch, dev) -> dict:
+    """(b) qwen3-1.7b at full width and depth trained through
+    ``launch/train``: TRAIN_STEPS steps uninterrupted, then the same run with
+    checkpoints every TRAIN_EVERY steps killed at TRAIN_FAULT by
+    ``--fault-step`` and resumed from its latest checkpoint."""
+    import math
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import get_api
+    from repro_torch.models.params import init_params
+
+    log(f"[9b] {DENSE_ARCH} trained through launch/train: batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, AdamW, float32 weights and moments")
+    base = ["--arch", DENSE_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--seed", "0", "--device", str(dev)]
+
+    def metrics(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    with tempfile.TemporaryDirectory() as d:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rc, _ = captured(train.main, base + ["--metrics", f"{d}/plain.jsonl"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(rc == 0, f"launch/train returned {rc}")
+        plain = metrics(f"{d}/plain.jsonl")
+        losses = [m["loss"] for m in plain]
+        check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+              f"losses {losses}")
+        # the CLI's first loss is the model's loss of seed 0's weights on
+        # step 0's batch, computed here apart from the CLI
+        cfg = get_config(DENSE_ARCH)
+        api = get_api(cfg)
+        with torch.no_grad():
+            params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
+                                 torch.float32, dev)
+            batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)(0)
+            start = float(api.loss(params, {k: torch.from_numpy(v).to(dev)
+                                            for k, v in batch.items()}, cfg)[0])
+        del params
+        check(abs(losses[0] - start) <= START_RTOL * start,
+              f"first loss {losses[0]}, the model's own {start}")
+        step_ms = statistics.median(m["step_ms"] for m in plain[2:])
+
+        # the same run with checkpoints, killed at TRAIN_FAULT, then resumed
+        ck = ["--ckpt-dir", f"{d}/ckpt", "--ckpt-every", str(TRAIN_EVERY)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            captured(train.main, base + ck + ["--fault-step", str(TRAIN_FAULT),
+                                             "--metrics", f"{d}/killed.jsonl"])
+        except RuntimeError as e:  # the injected fault, and nothing else
+            if f"injected fault at step {TRAIN_FAULT}" not in str(e):
+                raise
+        else:
+            check(False, "the injected fault did not fire")
+        # a killed process would lose a checkpoint still being written; here
+        # the killed run's writer finishes first, so the resume point is the
+        # last checkpoint the run started
+        for t in threading.enumerate():
+            if t.name.startswith("ckpt-write-"):
+                t.join()
+        killed_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(f"{d}/ckpt"))
+        shutil.rmtree(f"{d}/ckpt/{saved[0]}")  # the resume reads only the latest
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rc, lines = captured(train.main, base + ck + ["--metrics", f"{d}/resumed.jsonl"])
+        resumed_s = time.perf_counter() - t0
+        check(rc == 0, f"the resumed launch/train returned {rc}")
+        resumed_from = int(next(x for x in lines if "resumed from step" in x).split()[-1])
+        resumed = metrics(f"{d}/resumed.jsonl")
+        killed = metrics(f"{d}/killed.jsonl")
+        check([m["step"] for m in killed] == list(range(TRAIN_FAULT)), f"killed run {killed}")
+        check([m["step"] for m in resumed] == list(range(resumed_from + 1, TRAIN_STEPS)),
+              f"resumed steps {resumed}")
+        worst = 0.0
+        for m in killed + resumed:
+            rel = abs(m["loss"] - losses[m["step"]]) / abs(losses[m["step"]])
+            worst = max(worst, rel)
+            check(rel <= RESUME_RTOL, f"step {m['step']}: loss {m['loss']} against "
+                                      f"{losses[m['step']]} uninterrupted")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"  losses {losses} (the first as the model computes it apart: {start:.6f}; ln V = "
+        f"{math.log(cfg.vocab_size):.4f}); median step {step_ms:.1f} ms over steps 2-"
+        f"{TRAIN_STEPS - 1} "
+        f"({tokens / step_ms * 1e3:.0f} tok/s), peak {peak_gb:.2f} GB allocated")
+    log(f"  checkpoints {saved} before the fault at step {TRAIN_FAULT} ({killed_s:.1f} s, the "
+        f"writes included); resumed from step {resumed_from} in {resumed_s:.1f} s; steps "
+        f"{[m['step'] for m in killed + resumed]} repeat the uninterrupted losses within "
+        f"rtol {RESUME_RTOL} (worst {worst:.3g})")
+    return {"losses": losses, "first_loss_apart": start, "step_ms": step_ms, "tok_s": tokens / step_ms * 1e3,
+            "peak_gb": peak_gb, "step_ms_all": [m["step_ms"] for m in plain],
+            "checkpoints": saved, "resumed_from": resumed_from, "resume_worst_rel": worst,
+            "killed_run_s": killed_s, "resumed_run_s": resumed_s}
+
+
+def train_breakdown(torch, dev) -> dict:
+    """Where a train step's time goes (batch TRAIN_BATCH x TRAIN_SEQ, full
+    width and depth): the forward pass with the loss, the backward pass and
+    the AdamW update, each timed alone on the host clock between device
+    synchronisations, medians of 3 after a warm-up, beside its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import get_api
+    from repro_torch.models.params import count_params, init_params, tree_bytes, tree_leaves
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = get_config(DENSE_ARCH)
+    api = get_api(cfg)
+    n = count_params(api.decls(cfg))
+    params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
+                         torch.float32, dev)
+    adamw = AdamW()
+    state = adamw.init(params)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)(0).items()}
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    times = {"forward and loss": [], "backward": [], "AdamW": []}
+    for rep in range(4):
+        loss, f_ms = timed(lambda: api.loss(live, batch, cfg)[0])
+        grads, b_ms = timed(lambda: torch.autograd.grad(loss, leaves))
+        it = iter(grads)
+        g_tree = tree_map(lambda _: next(it), params)
+        _, o_ms = timed(lambda: adamw.update(g_tree, state, params))
+        del loss, grads, g_tree
+        if rep:
+            for key, ms in zip(times, (f_ms, b_ms, o_ms)):
+                times[key].append(ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # products: 2·N·tokens forward, 4·N·tokens backward; AdamW reads p, g,
+    # m, v and writes p, m, v once
+    bounds = {"forward and loss": 2 * n * tokens / FP32_OPS_PER_S * 1e3,
+              "backward": 4 * n * tokens / FP32_OPS_PER_S * 1e3,
+              "AdamW": 7 * tree_bytes(params) / HBM_BYTES_PER_S * 1e3}
+    out = {key: {"ms": statistics.median(v), "bound_ms": bounds[key]} for key, v in times.items()}
+    log("[9b] a train step by part: " + "; ".join(
+        f"{key} {v['ms']:.1f} ms (bound {v['bound_ms']:.1f})" for key, v in out.items()))
+    del params, state, live, leaves
+    return out
+
+
+def card_against_cpu(torch, np, dev) -> dict:
+    """(c) one train step of qwen3-1.7b at full width and 2 layers, the same
+    weights and SyntheticLM batch on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import get_api
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_config(DENSE_ARCH).replace(num_layers=2)
+    api = get_api(cfg)
+    log(f"[9c] {cfg.name} at full width, {cfg.num_layers} layers: one AdamW step (lr "
+        f"{CARD_CPU_LR}) on the card and on the CPU, batch {CARD_CPU_BATCH} x {CARD_CPU_SEQ}")
+    cpu = torch.device("cpu")
+    params = init_params(torch.Generator().manual_seed(0), api.decls(cfg), torch.float32, cpu)
+    batch = SyntheticLM(cfg, CARD_CPU_BATCH, CARD_CPU_SEQ, seed=0)(0)
+    opt = AdamW(lr=CARD_CPU_LR)
+    step = make_train_step(cfg, opt)
+    runs = []
+    for where in (dev, cpu):
+        p = tree_map(lambda a: a.to(where, copy=True), params)
+        state = init_train_state(cfg, opt, p)
+        t0 = time.perf_counter()
+        p, state, m = step(p, state, {k: torch.from_numpy(v).to(where) for k, v in batch.items()})
+        runs.append((tree_map(lambda a: a.cpu(), p), float(m["loss"]), float(m["grad_norm"]),
+                     time.perf_counter() - t0))
+    (pg, lg, ng, sg), (pc, lc, nc, sc) = runs
+    moved = flips = total = 0
+    worst = 0.0
+    for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        flips += int((diff > CARD_CPU_LR).sum())
+        total += diff.numel()
+    loss_rel, norm_rel = abs(lg - lc) / abs(lc), abs(ng - nc) / abs(nc)
+    # an Adam step moves a parameter by lr·(±1 + wd·p) at step 1, so two runs
+    # whose gradient signs agree land within float32 rounding of each other
+    check(loss_rel <= CARD_CPU_LOSS_RTOL, f"loss card {lg} vs CPU {lc}")
+    check(norm_rel <= CARD_CPU_NORM_RTOL, f"grad_norm card {ng} vs CPU {nc}")
+    check(flips <= CARD_CPU_FLIP_SHARE * total and worst <= 2.2 * CARD_CPU_LR,
+          f"updated parameters: {flips} of {total} moved apart, max |d| {worst}")
+    log(f"  loss card {lg:.6f} / CPU {lc:.6f} (rel {loss_rel:.3g}, limit {CARD_CPU_LOSS_RTOL}); "
+        f"grad_norm {ng:.6f} / {nc:.6f} (rel {norm_rel:.3g}, limit {CARD_CPU_NORM_RTOL}); "
+        f"updated parameters: {flips} of {total:,} differ by more than lr (limit "
+        f"{CARD_CPU_FLIP_SHARE:.0%}), max |d| {worst:.3g}; step {sg:.2f} s card (first call), "
+        f"{sc:.2f} s CPU")
+    return {"loss_card": lg, "loss_cpu": lc, "grad_norm_card": ng, "grad_norm_cpu": nc,
+            "param_flips": flips, "params": total, "param_max_abs_diff": worst}
+
+
+def example_twins(torch, dev, kernels: list) -> dict:
+    """(d) the example twins on the card, each path's launches counted alone:
+    elastic_train_torch.py --production (both auctions through bid_eval),
+    quickstart_torch.py, market_sim_torch.py (6 epochs) and
+    market_service_demo_torch.py --agents 400 --ticks 4, each ending with the
+    reference's last line → the bid_eval and partials entries gain their
+    launches."""
+    import math
+    import re
+
+    from repro_torch.kernels import ops
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import elastic_train_torch
+    import market_service_demo_torch
+    import market_sim_torch
+    import quickstart_torch
+
+    runs = {
+        "elastic_train_torch.py --production": (elastic_train_torch.main, ["--production"],
+                                                "[done] final loss"),
+        "quickstart_torch.py": (quickstart_torch.main, [], "realized surplus"),
+        "market_sim_torch.py": (market_sim_torch.main, [], "all epochs SYSTEM-feasible: True"),
+        "market_service_demo_torch.py --agents 400 --ticks 4": (
+            market_service_demo_torch.main, ["--agents", "400", "--ticks", "4"],
+            "incremental book bit-identical to full repack: True"),
+    }
+    out = {}
+    for label, (fn, argv, last) in runs.items():
+        log(f"[9d] examples/{label}")
+        gc.collect()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, lines = captured(fn, argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check(lines and lines[-1].startswith(last), f"{label} ends with {lines[-1:]}")
+        out[label] = {"s": wall, "launches": launches, "last": lines[-1]}
+        log(f"  {wall:.1f} s; launches {launches}")
+        if label.startswith("elastic"):
+            grants = [x for x in lines if x.startswith("[market] grant")]
+            losses = [float(m.group(1)) for x in lines
+                      if (m := re.search(r"^\[train/.*\] step \d+ loss ([0-9.]+)", x))]
+            resumed = int(next(x for x in lines if x.startswith("[elastic]")).split()[3])
+            check(len(grants) == 2 and launches["bid_eval"] > 0,
+                  f"elastic: grants {grants}, launches {launches}")
+            check(len(losses) > 2 and all(math.isfinite(x) for x in losses),
+                  f"elastic losses {losses}")
+            out[label].update(grants=grants, losses=losses, resumed_step=resumed)
+        if label.startswith("quickstart"):
+            check(any("SYSTEM feasible: True" in x for x in lines) and launches["bid_eval"] > 0,
+                  f"quickstart: {launches}")
+        if label.startswith(("market_sim", "market_service")):
+            check(launches["sparse_bid_eval_partials"] > 0, f"{label}: {launches}")
+            if label.startswith("market_service"):
+                check(all("SYSTEM ok=True" in x for x in lines if x.startswith("tick")
+                          and "rounds" in x), f"{label}: a tick not SYSTEM-feasible")
+    for name, paths in (("bid_eval", ("elastic", "quickstart")),
+                        ("sparse_bid_eval_partials", ("market_sim", "market_service"))):
+        entry = next(e for e in kernels if e["name"] == name)
+        grew = {label: r["launches"][name] for label, r in out.items() if label.startswith(paths)}
+        entry["launches"] += sum(grew.values())
+        entry["path"] += ", " + ", ".join(f"examples/{label}" for label in grew)
+        entry["launches_examples"] = grew
+    return out
+
+
+def dense_paths(torch, np, dev, kernels: list) -> None:
+    """Phase [9]: the dense family served and trained on the card, the card
+    against the CPU, and the example twins."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    summary = {"serve": dense_serving(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["train"] = dense_training(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["train_by_part"] = train_breakdown(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["card_vs_cpu"] = card_against_cpu(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["examples"] = example_twins(torch, dev, kernels)
+    log("[9] " + json.dumps(summary, default=str))
+
+
 def run(torch, np) -> dict:
     from repro_torch.kernels import build
 
@@ -1976,6 +2420,9 @@ def run(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     scenario_paths(torch, np, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_paths(torch, np, dev, kernels)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

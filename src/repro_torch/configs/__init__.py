@@ -1,11 +1,15 @@
 """Architecture configs of the port (``--arch <id>``), the reference's ids.
 
-Only ``rwkv6-7b`` is ported; the other ids raise ``NotImplementedError``
-until ROADMAP queue 1, 'Model zoo and training' ports their families.
+The dense family (``qwen3-1.7b``, ``minitron-8b``, ``qwen2-72b``,
+``qwen1.5-110b``) and ``rwkv6-7b`` are ported; each other id raises
+``NotImplementedError`` naming the ROADMAP queue 1 item that ports its
+family.
 """
 from __future__ import annotations
 
 import importlib
+
+from ..models.config import FAMILY_ITEMS, not_ported
 
 # the reference's arch ids, in its order
 ARCH_IDS = [
@@ -20,17 +24,27 @@ ARCH_IDS = [
     "recurrentgemma-2b",
     "whisper-medium",
 ]
-_PORTED = {"rwkv6-7b": "rwkv6_7b"}
+_PORTED = {
+    "qwen3-1.7b": "qwen3_1p7b",
+    "minitron-8b": "minitron_8b",
+    "qwen2-72b": "qwen2_72b",
+    "qwen1.5-110b": "qwen1p5_110b",
+    "rwkv6-7b": "rwkv6_7b",
+}
+_WAITING = {  # arch -> its family
+    "pixtral-12b": "vlm",
+    "deepseek-v3-671b": "moe",
+    "kimi-k2-1t-a32b": "moe",
+    "recurrentgemma-2b": "hybrid",
+    "whisper-medium": "audio",
+}
 
 
 def _mod(arch: str):
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     if arch not in _PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP queue 1, 'Model zoo and training' "
-            f"(ported: {list(_PORTED)})"
-        )
+        raise not_ported(f"{arch} ({_WAITING[arch]})", FAMILY_ITEMS[_WAITING[arch]])
     return importlib.import_module(f".{_PORTED[arch]}", __package__)
 
 

@@ -1,9 +1,9 @@
-"""Quota → device grants (counterpart of ``repro.core.provisioner``).
+"""Quota → device grants → job meshes (counterpart of
+``repro.core.provisioner``).
 
 Winning auction allocations (chips per cluster) become per-job
-:class:`DeviceGrant`\\ s, and a grant's chips factor into a (data, model)
-mesh shape.  Building the mesh itself waits for the training slice, where a
-``torch.distributed`` process group exists to hold it.
+:class:`DeviceGrant`\\ s, and a grant's chips become a (data, model)
+``torch.distributed`` device mesh that the training runtime consumes.
 """
 from __future__ import annotations
 
@@ -11,7 +11,11 @@ import dataclasses
 import math
 from typing import Sequence
 
-from .types import AuctionResult
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from .types import AuctionResult, as_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,16 +87,42 @@ def grants_from_allocation(
     return grants
 
 
-def grant_to_mesh(grant: DeviceGrant, min_model: int = 1, devices: Sequence | None = None):
-    """Build a (data, model) mesh over the granted chips: not ported yet.
+def world_size() -> int:
+    """Ranks in the default process group; 1 without one."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
-    The reference returns a JAX ``Mesh``; the port's twin is a
-    ``torch.distributed`` device mesh, which comes with the training slice
-    (ROADMAP queue 1, "Model zoo and training").
+
+def mesh_shape(chips: int, available: int, min_model: int = 1) -> tuple[int, int]:
+    """The (data, model) shape of a grant of ``chips`` over ``available``
+    devices: :func:`plan_mesh_shape`, then the data axis halved until the
+    mesh fits, then one model row of every device, as the reference's
+    ``grant_to_mesh`` degrades."""
+    data, model = plan_mesh_shape(chips, min_model=min_model)
+    while data > 1 and data * model > available:
+        data //= 2
+    if data * model > available:
+        data, model = 1, max(1, available)
+    return data, model
+
+
+def grant_to_mesh(grant: DeviceGrant, min_model: int = 1, devices: Sequence[int] | None = None,
+                  device: str | torch.device = "cuda") -> DeviceMesh:
+    """A (data, model) ``DeviceMesh`` over the granted chips, on ``device``'s
+    type (the card unless the caller asks for the CPU).
+
+    ``devices`` are the ranks of the default process group given to the job
+    (default: every rank of the group); the mesh shape is :func:`mesh_shape`
+    of the grant over them, truncated to the grant.  Without an initialised
+    process group the job is this process alone: ``devices`` defaults to
+    rank 0 and the mesh is built without process groups, as rank 0 (as
+    ``core.auction.users_mesh`` is one rank without a group).
     """
-    raise NotImplementedError(
-        "grant_to_mesh waits for the port's training slice (ROADMAP queue 1, "
-        "'Model zoo and training'): it needs a torch.distributed process group; "
-        f"plan_mesh_shape({grant.chips}) gives the (data, model) shape meanwhile"
-    )
-
+    dev_type = as_device(device).type
+    wired = dist.is_available() and dist.is_initialized()
+    ranks = list(devices) if devices is not None else list(range(world_size()))
+    data, model = mesh_shape(grant.chips, len(ranks), min_model)
+    mesh = torch.tensor(ranks[: data * model], dtype=torch.int64).reshape(data, model)
+    if wired:
+        return DeviceMesh(dev_type, mesh, mesh_dim_names=("data", "model"))
+    return DeviceMesh(dev_type, mesh, mesh_dim_names=("data", "model"), _init_backend=False,
+                      _rank=0)

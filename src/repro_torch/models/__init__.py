@@ -1,6 +1,7 @@
 """Model zoo of the port (``repro.models``' counterpart): configuration,
-parameter declarations, shared layers and the RWKV-6 family.  The other
-families come with ROADMAP queue 1, "Model zoo and training"."""
+parameter declarations, shared layers, attention, and the dense (GQA
+transformer) and ssm (RWKV-6) families.  The other families come with the
+ROADMAP queue 1 items that :data:`.config.FAMILY_ITEMS` names."""
 from .config import (
     EncDecCfg,
     GriffinCfg,

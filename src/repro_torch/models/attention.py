@@ -1,0 +1,245 @@
+"""GQA / MQA attention: training (full-sequence causal), decode (KV cache),
+cross-attention (the port of ``repro.models.attention``).
+
+One implementation covers the zoo's attention variants:
+  * grouped-query attention, any H/KVH ratio (MQA included);
+  * optional per-head qk RMS-norm (qwen3), QKV bias (qwen2 / qwen1.5);
+  * sliding-window masks;
+  * cross-attention with precomputed encoder KV;
+  * decode writing S tokens into a (B, S_max, KVH, hd) cache.
+
+Plain torch ops that mirror the reference's arithmetic: float32 products of
+the activations (``preferred_element_type=float32``), a float32 softmax cast
+to ``v.dtype``, masks filled with ``NEG_INF`` (not ``-inf``).  The
+reference's ``shard(...)`` / ``replicate`` / ``shard_cache_kv`` layout hints
+have nothing to do at one rank and are left out (ROADMAP queue 1,
+'Sharding').
+"""
+from __future__ import annotations
+
+import torch
+
+from .config import ModelConfig
+from .layers import apply_rope, matmul, rmsnorm, rope_angles
+from .params import ParamDecl
+
+NEG_INF = -2.0e38
+FLASH_MIN_KV = 8192  # blockwise path kicks in for long-context prefill
+
+
+def attn_decls(
+    d_model: int,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    qkv_bias: bool = False,
+    qk_norm: bool = False,
+) -> dict:
+    d = {
+        "wq": ParamDecl((d_model, num_heads, head_dim), ("embed", "heads", "qk_head_dim")),
+        "wk": ParamDecl((d_model, num_kv_heads, head_dim), ("embed", "kv_heads", "qk_head_dim")),
+        "wv": ParamDecl((d_model, num_kv_heads, head_dim), ("embed", "kv_heads", "v_head_dim")),
+        "wo": ParamDecl((num_heads, head_dim, d_model), ("heads", "v_head_dim", "embed")),
+    }
+    if qkv_bias:
+        d["bq"] = ParamDecl((num_heads, head_dim), ("heads", "qk_head_dim"), init="zeros")
+        d["bk"] = ParamDecl((num_kv_heads, head_dim), ("kv_heads", "qk_head_dim"), init="zeros")
+        d["bv"] = ParamDecl((num_kv_heads, head_dim), ("kv_heads", "v_head_dim"), init="zeros")
+    if qk_norm:
+        d["q_norm"] = ParamDecl((head_dim,), ("qk_head_dim",), init="ones")
+        d["k_norm"] = ParamDecl((head_dim,), ("qk_head_dim",), init="ones")
+    return d
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``bsd,dnh->bsnh``."""
+    d, n, h = w.shape
+    return matmul(x, w.reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
+
+
+def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``bsnh,nhd->bsd``."""
+    n, h, d = w.shape
+    return matmul(o.reshape(*o.shape[:-2], n * h), w.reshape(n * h, d))
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
+    """``cache`` (B, T, ...) with ``new`` (B, S, ...) written at [idx, idx+S).
+
+    The reference's one-hot (S = 1) and windowed (S > 1) select, not an
+    in-place slice write, so the new cache is the reference's bit for bit.
+    """
+    T = cache.shape[1]
+    S = new.shape[1]
+    pos = torch.arange(T, device=cache.device)
+    shape = (1, T) + (1,) * (cache.ndim - 2)
+    if S == 1:
+        return torch.where((pos == idx).reshape(shape), new.to(cache.dtype), cache)
+    within = (pos >= idx) & (pos < idx + S)
+    src = torch.clamp(pos - idx, 0, S - 1)
+    gathered = torch.index_select(new.to(cache.dtype), 1, src)
+    return torch.where(within.reshape(shape), gathered, cache)
+
+
+def _mask(
+    q_pos: torch.Tensor,  # (B, S) int
+    kv_len: int,
+    causal: bool,
+    window: int | None,
+) -> torch.Tensor:
+    """(B, S, T) boolean keep-mask."""
+    kv_pos = torch.arange(kv_len, device=q_pos.device)
+    keep = torch.ones((q_pos.shape[0], q_pos.shape[1], kv_len), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        keep = keep & (kv_pos[None, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        keep = keep & (kv_pos[None, None, :] > q_pos[:, :, None] - window)
+    return keep
+
+
+def mha(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, T, KVH, hd)
+    v: torch.Tensor,  # (B, T, KVH, hd)
+    keep: torch.Tensor | None,  # (B, S, T) or None (full attention)
+    grouped: bool = False,
+) -> torch.Tensor:
+    """Attention core; float32 softmax; returns (B, S, H, hd) in ``v.dtype``.
+
+    Two GQA strategies, as the reference picks them: prefill and training
+    (``grouped=False``) expand the KV heads to the query heads; decode
+    (``grouped=True``) contracts grouped queries against the compact cache.
+    """
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    if grouped and H != KVH:
+        g = H // KVH
+        qg = q.reshape(B, S, KVH, g, hd)
+        logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * (hd**-0.5)
+        if keep is not None:
+            logits = torch.where(keep[:, None, None, :, :], logits, NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bkgst,btkh->bskgh", w.float(), v.float()).reshape(B, S, H, hd)
+        return out.to(v.dtype)
+    if H != KVH:
+        g = H // KVH
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    logits = torch.einsum("bsnh,btnh->bnst", q.float(), k.float()) * (hd**-0.5)
+    if keep is not None:
+        logits = torch.where(keep[:, None, :, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bnst,btnh->bsnh", w.float(), v.float())
+    return out.to(v.dtype)
+
+
+def blockwise_mha(
+    q: torch.Tensor,  # (B, S, H, hd), heads already expanded to match k/v
+    k: torch.Tensor,  # (B, T, H, hd)
+    v: torch.Tensor,  # (B, T, H, hd_v)
+    q_pos: torch.Tensor,  # (B, S)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    block: int = 1024,
+) -> torch.Tensor:
+    """Flash-style attention: a loop over KV blocks with a running (max, sum,
+    acc) in float32, so the S×T score matrix never materialises.  Equal to
+    softmax(QKᵀ)V up to float32 association."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    hd_v = v.shape[-1]
+    blk = min(block, T)
+    Tp = (T + blk - 1) // blk * blk
+    pad = Tp - T
+    if pad:
+        k = torch.cat([k, k.new_zeros((B, pad, H, hd))], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad, H, hd_v))], dim=1)
+    scale = hd**-0.5
+    dev = q.device
+    m = torch.full((B, H, S), float("-inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, S, hd_v), dtype=torch.float32, device=dev)
+    qf = q.float()
+    for start in range(0, Tp, blk):
+        kblk, vblk = k[:, start:start + blk], v[:, start:start + blk]
+        pos = torch.arange(start, start + blk, device=dev)
+        s = torch.einsum("bsnh,btnh->bnst", qf, kblk.float()) * scale  # (B, H, S, blk)
+        keep = pos[None, None, :] < T
+        if causal:
+            keep = keep & (pos[None, None, :] <= q_pos[:, :, None])
+        if window is not None:
+            keep = keep & (pos[None, None, :] > q_pos[:, :, None] - window)
+        s = torch.where(keep[:, None, :, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        r = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * r + p.sum(dim=-1)
+        acc = acc * r[..., None] + torch.einsum(
+            "bnst,btnh->bnsh", p.to(vblk.dtype).float(), vblk.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(v.dtype)  # (B, S, H, hd_v)
+
+
+def attention(
+    x: torch.Tensor,  # (B, S, D)
+    p: dict,
+    cfg: ModelConfig,
+    q_pos: torch.Tensor,  # (B, S) absolute positions
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    use_rope: bool = True,
+    x_kv: torch.Tensor | None = None,  # cross-attention source (B, T, D)
+    cache: dict | None = None,  # {"k", "v"}: (B, S_max, KVH, hd)
+    cache_idx=None,  # write position of x's first token
+) -> tuple[torch.Tensor, dict | None]:
+    hd = cfg.hd()
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+
+    if cache is not None and cache_idx is None:
+        # cross-attention decode: KV was precomputed at prefill, reused as is
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
+        keep = None
+    else:
+        src = x if x_kv is None else x_kv
+        k = _project(src, p["wk"])
+        v = _project(src, p["wv"])
+        if "bk" in p:
+            k = k + p["bk"].to(k.dtype)
+            v = v + p["bv"].to(v.dtype)
+        if "k_norm" in p:
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        if use_rope and x_kv is None:
+            cos_q, sin_q = rope_angles(q_pos, hd, cfg.rope_theta)
+            q = apply_rope(q, cos_q, sin_q)
+            k = apply_rope(k, cos_q, sin_q)  # self-attention: the same positions
+        if cache is not None:
+            # self-attention decode: this step's K/V written at cache_idx
+            ck = cache_write(cache["k"], k, cache_idx)
+            cv = cache_write(cache["v"], v, cache_idx)
+            keep = _mask(q_pos, ck.shape[1], causal=True, window=window)
+            out = mha(q, ck, cv, keep, grouped=True)
+            return _out(out, p["wo"]), {"k": ck, "v": cv}
+        new_cache = None
+        if x_kv is not None:
+            keep = None  # cross-attention training: every frame
+        elif causal and k.shape[1] >= FLASH_MIN_KV:
+            # long-context prefill and training: blockwise, no S×T scores
+            if q.shape[2] != k.shape[2]:
+                g = q.shape[2] // k.shape[2]
+                k = torch.repeat_interleave(k, g, dim=2)
+                v = torch.repeat_interleave(v, g, dim=2)
+            out = blockwise_mha(q, k, v, q_pos, causal=True, window=window)
+            return _out(out, p["wo"]), None
+        else:
+            keep = _mask(q_pos, k.shape[1], causal=causal, window=window)
+    out = mha(q, k, v, keep)
+    return _out(out, p["wo"]), new_cache

@@ -19,6 +19,20 @@ import torch
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
 
+# The ROADMAP queue 1 item that ports each family the port does not run yet.
+FAMILY_ITEMS = {
+    "moe": "Model zoo: MoE with MLA",
+    "hybrid": "Model zoo: the hybrid family",
+    "audio": "Model zoo: audio",
+    "vlm": "Model zoo: VLM",
+}
+SHARDING_ITEM = "Sharding"
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error an entry point raises for what a later ROADMAP item ports."""
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, {item!r}")
+
 
 @dataclasses.dataclass(frozen=True)
 class MoECfg:

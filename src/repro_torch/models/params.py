@@ -7,8 +7,10 @@ initialiser.  :func:`init_params` materialises a tree of the same structure
 holding tensors, with the reference's init kinds and fan-in scales, drawn
 from a ``torch.Generator`` on the target device (its numbers differ from
 ``jax.random``'s; :func:`.convert.params_from_reference` gives the port the
-reference's own weights).  The sharding rules and the dry-run's abstract
-parameters wait for the multi-GPU slice.
+reference's own weights).  :func:`tree_map` and :func:`tree_leaves` walk
+such trees in ``jax.tree_util``'s order.  The sharding rules
+(``pspec_tree``, ``validated_pspec_tree``) and the dry-run's
+``abstract_params`` wait for ROADMAP queue 1, 'Sharding'.
 """
 from __future__ import annotations
 
@@ -75,3 +77,28 @@ def count_params(decls: Any) -> int:
     sizes: list[int] = []
     map_decls(lambda d: sizes.append(math.prod(d.shape)), decls)
     return sum(sizes)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree of dicts, lists and tuples, dict keys in sorted
+    order, as ``jax.tree_util.tree_leaves`` lists them."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for node in tree for leaf in tree_leaves(node)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf to ``tree`` and the trees of the same
+    structure in ``rest``."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest)) for key in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *nodes) for nodes in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_bytes(tree: Any) -> int:
+    return sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(tree)
+               if isinstance(leaf, torch.Tensor))

@@ -1,8 +1,9 @@
 """Uniform per-family model API (the port of ``repro.models.registry``).
 
-Serving talks to a :class:`ModelAPI` and never dispatches on family again.
-Only the ``ssm`` family has an implementation so far; training (``loss``)
-is not ported.
+Training and serving talk to a :class:`ModelAPI` and never dispatch on
+family again.  The ``dense`` and ``ssm`` families have one; the others
+raise ``NotImplementedError`` naming the ROADMAP queue 1 item that ports
+each.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from ..core.types import as_device
 from . import transformer as tf
-from .config import ModelConfig
+from .config import FAMILY_ITEMS, ModelConfig, not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,14 +32,9 @@ def _lm_prefill(params, batch, cfg: ModelConfig):
     return logits
 
 
-def _lm_loss(params, batch, cfg: ModelConfig, *args, **kwargs):
-    raise NotImplementedError(
-        "training is not ported yet: ROADMAP queue 1, 'Model zoo and training'")
-
-
 _LM_API = ModelAPI(
     decls=tf.lm_decls,
-    loss=_lm_loss,
+    loss=tf.lm_loss,
     prefill=_lm_prefill,
     init_cache=tf.init_cache,
     decode_step=tf.decode_step,
@@ -47,10 +43,7 @@ _LM_API = ModelAPI(
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"the audio family ({cfg.name}) is not ported yet: "
-            "ROADMAP queue 1, 'Model zoo and training'"
-        )
+        raise not_ported(f"the audio family ({cfg.name})", FAMILY_ITEMS["audio"])
     return _LM_API
 
 
@@ -60,11 +53,9 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
     """Synthetic token batch for this family (smoke runs and tests)."""
     dev = as_device(device)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
-    if cfg.family == "audio" or cfg.vlm_patches:
-        raise NotImplementedError(
-            f"{cfg.name}'s inputs are not ported yet: "
-            "ROADMAP queue 1, 'Model zoo and training'"
-        )
+    if cfg.family in ("audio", "vlm") or cfg.vlm_patches:
+        family = "vlm" if cfg.vlm_patches else cfg.family
+        raise not_ported(f"{cfg.name}'s inputs", FAMILY_ITEMS[family])
     return {
         "tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev),
         "labels": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev),

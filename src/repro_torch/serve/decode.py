@@ -7,8 +7,9 @@
   decode_fn(params, cache, tokens, idx)  -> (logits (B, S, V), new cache)
 
 ``generate`` seeds the cache with one chunked prefill of the whole prompt
-and then decodes token by token, as the reference does for the ``ssm``
-family.  A Python loop stands in for ``lax.fori_loop``.
+at ``idx = 0`` and then decodes token by token, as the reference does for
+every family but the token-by-token ones (``hybrid``, ``audio``).  A Python
+loop stands in for ``lax.fori_loop``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Callable
 import torch
 
 from ..models import ModelConfig, get_api
+from ..models.config import FAMILY_ITEMS, not_ported
 
 
 def make_serve_steps(cfg: ModelConfig) -> tuple[Callable, Callable]:
@@ -63,15 +65,13 @@ def generate(
     """Prompt and continuation, (B, S0 + max_new) int32, on the prompt's device.
 
     The whole prompt goes through ``decode_step`` as one (B, S0) chunk at
-    ``idx = 0`` (for RWKV-6 one ``wkv6`` launch a layer), and its last
+    ``idx = 0`` (for RWKV-6 one ``wkv6`` launch a layer; for the dense
+    family the prompt's K/V written into the cache at once), and its last
     position's logits give the first new token; then ``max_new - 1`` steps
     of one token each.
     """
     if cfg.family in _TOKEN_BY_TOKEN_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet: "
-            "ROADMAP queue 1, 'Model zoo and training'"
-        )
+        raise not_ported(f"the {cfg.family!r} family's decode", FAMILY_ITEMS[cfg.family])
     if max_new < 1:
         raise ValueError(f"max_new must be at least 1, got {max_new}")
     api = get_api(cfg)

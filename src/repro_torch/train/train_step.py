@@ -1,0 +1,80 @@
+"""Train-step factory: loss → grads → optimizer, with microbatch
+accumulation (the port of ``repro.train.train_step``).
+
+    step(params, opt_state, batch) -> (params, opt_state, metrics)
+
+* gradients come from ``torch.autograd`` on detached aliases of the
+  parameters, so the caller's tensors never carry ``requires_grad``;
+* ``grad_accum > 1`` splits the batch into microbatches, in order, folds
+  their gradients into float32 accumulators and divides by ``grad_accum``;
+  the loss is the mean of the microbatches' losses;
+* ``compress``: int8 + error feedback between the gradients and the
+  optimizer (``train/grad_compress.py``).
+
+The metrics are the reference's: ``loss``, the loss function's (``xent``,
+``moe_aux``; not with ``grad_accum > 1``, as in the reference) and the
+optimizer's (``grad_norm``).  The optimizer updates in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from ..models import ModelConfig, get_api
+from ..models.params import tree_leaves, tree_map
+from .grad_compress import apply_error_feedback, init_error_feedback
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    optimizer,
+    grad_accum: int = 1,
+    compress: bool = False,
+) -> Callable:
+    api = get_api(cfg)
+
+    def value_and_grad(params, batch):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        loss, metrics = api.loss(live, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        it = iter(grads)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_map(
+            lambda _: next(it), params)
+
+    def train_step(params, opt_state, batch):
+        if grad_accum == 1:
+            loss, metrics, grads = value_and_grad(params, batch)
+        else:
+            if any(v.shape[0] % grad_accum for v in batch.values()):
+                raise ValueError(f"batch does not split into {grad_accum} equal microbatches")
+            micro = {k: torch.chunk(v, grad_accum, dim=0) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            losses = []
+            for i in range(grad_accum):
+                mb_loss, _, g = value_and_grad(params, {k: parts[i] for k, parts in micro.items()})
+                tree_map(lambda a, gi: a.add_(gi.float()), grads, g)
+                losses.append(mb_loss)
+            grads = tree_map(lambda g: g / grad_accum, grads)
+            loss = torch.mean(torch.stack(losses))
+            metrics = {}
+
+        if compress:
+            grads, ef = apply_error_feedback(grads, opt_state["ef"])
+        new_params, new_opt, om = optimizer.update(grads, opt_state["opt"], params)
+        new_state = {"opt": new_opt}
+        if compress:
+            new_state["ef"] = ef
+        return new_params, new_state, {"loss": loss, **metrics, **om}
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, optimizer, params, compress: bool = False):
+    state: dict[str, Any] = {"opt": optimizer.init(params)}
+    if compress:
+        state["ef"] = init_error_feedback(params)
+    return state

@@ -368,5 +368,6 @@ def test_grants_from_allocation_match_jax(book):
     assert gt and [dataclasses.astuple(g) for g in gt] == [dataclasses.astuple(g) for g in gj]
     for g in gt:
         assert tprov.plan_mesh_shape(g.chips, 2) == jprov.plan_mesh_shape(g.chips, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprov.grant_to_mesh(gt[0])
+    for g in gt:  # one rank without a process group, as the reference's mesh on one device
+        mesh = tprov.grant_to_mesh(g, 2, device="cpu")
+        assert tuple(mesh.shape) == jprov.grant_to_mesh(g, 2).devices.shape == (1, 1)

@@ -23,7 +23,16 @@ import repro_torch.models, repro_torch.models.convert, repro_torch.configs
 import repro_torch.serve.decode, repro_torch.launch.serve
 import repro_torch.serve.market, repro_torch.serve.wal, repro_torch.serve.config
 import repro_torch.checkpoint, repro_torch.checkpoint.store, repro_torch.checkpoint.service
-import repro_torch.checkpoint.market
+import repro_torch.checkpoint.market, repro_torch.checkpoint.checkpoint
+import repro_torch.models.attention, repro_torch.models.transformer, repro_torch.models.layers
+import repro_torch.data.pipeline, repro_torch.launch.train
+import repro_torch.train.optimizer, repro_torch.train.grad_compress, repro_torch.train.train_step
+import repro_torch.configs.qwen3_1p7b, repro_torch.configs.minitron_8b
+import repro_torch.configs.qwen2_72b, repro_torch.configs.qwen1p5_110b
+import importlib.util, pathlib
+for path in sorted(pathlib.Path(sys.argv[1]).glob("*_torch.py")):  # the example twins
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps(bad))
@@ -32,9 +41,11 @@ print(json.dumps(bad))
 
 def test_port_imports_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
+    examples = SRC.parent / "examples"
+    assert len(list(examples.glob("*_torch.py"))) == 5
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE], env=env, capture_output=True, text=True, timeout=120,
-        check=True,
+        [sys.executable, "-c", _PROBE, str(examples)], env=env, capture_output=True, text=True,
+        timeout=120, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
@@ -99,3 +110,24 @@ def test_scenarios_and_sharded_settlement_without_a_gpu(monkeypatch):
         eco, sc = builder(device="cpu")
         assert eco.device.type == "cpu" and sc.name == name
     assert pt.users_mesh() == pt.UsersMesh(None, 1, 0)
+
+
+def test_training_entry_points_without_a_gpu_raise(monkeypatch):
+    import importlib.util
+
+    from repro_torch.core.provisioner import DeviceGrant, grant_to_mesh
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        grant_to_mesh(DeviceGrant("job", "c", 8))
+    for name in ("quickstart", "market_sim", "market_service_demo", "serve_demo",
+                 "elastic_train"):
+        path = SRC.parent / "examples" / f"{name}_torch.py"
+        spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.main([])

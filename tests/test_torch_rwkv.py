@@ -237,12 +237,12 @@ def test_serve_cli_runs_on_the_cpu():
 
 
 def test_unported_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="Model zoo and training"):
-        get_config("qwen3-1.7b")
+    with pytest.raises(NotImplementedError, match="Model zoo: MoE with MLA"):
+        get_config("deepseek-v3-671b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    cfg = get_smoke("rwkv6-7b").replace(name="dense-like", family="dense")
-    with pytest.raises(NotImplementedError, match="Model zoo and training"):
+    cfg = get_smoke("rwkv6-7b").replace(name="hybrid-like", family="hybrid")
+    with pytest.raises(NotImplementedError, match="Model zoo: the hybrid family"):
         tf.lm_decls(cfg)
-    with pytest.raises(NotImplementedError, match="Model zoo and training"):
-        get_api(get_smoke("rwkv6-7b")).loss(None, None, cfg)
+    with pytest.raises(NotImplementedError, match="Model zoo: the hybrid family"):
+        get_api(get_smoke("rwkv6-7b")).loss(None, {"tokens": None}, cfg)
