@@ -1,7 +1,8 @@
 """Architecture configs of the port (``--arch <id>``), the reference's ids.
 
 The dense family (``qwen3-1.7b``, ``minitron-8b``, ``qwen2-72b``,
-``qwen1.5-110b``) and ``rwkv6-7b`` are ported; each other id raises
+``qwen1.5-110b``), the MoE family (``deepseek-v3-671b`` with MLA,
+``kimi-k2-1t-a32b``) and ``rwkv6-7b`` are ported; each other id raises
 ``NotImplementedError`` naming the ROADMAP queue 1 item that ports its
 family.
 """
@@ -25,6 +26,8 @@ ARCH_IDS = [
     "whisper-medium",
 ]
 _PORTED = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "qwen3-1.7b": "qwen3_1p7b",
     "minitron-8b": "minitron_8b",
     "qwen2-72b": "qwen2_72b",
@@ -33,8 +36,6 @@ _PORTED = {
 }
 _WAITING = {  # arch -> its family
     "pixtral-12b": "vlm",
-    "deepseek-v3-671b": "moe",
-    "kimi-k2-1t-a32b": "moe",
     "recurrentgemma-2b": "hybrid",
     "whisper-medium": "audio",
 }

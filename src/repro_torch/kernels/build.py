@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("clock_bid_eval", "sparse_bid_eval", "sparse_bid_eval_csr", "wkv6", "ordered_scatter")
+SOURCES = ("clock_bid_eval", "sparse_bid_eval", "sparse_bid_eval_csr", "wkv6", "ordered_scatter",
+           "ordered_rows")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

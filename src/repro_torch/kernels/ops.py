@@ -8,7 +8,7 @@ against their plain versions, and nothing on the main path passes it.
 
 Each kernel entry point (``bid_eval``, ``sparse_bid_eval_z``,
 ``sparse_bid_eval_partials``, ``sparse_bid_eval_csr_z``, ``wkv6``,
-``ordered_scatter_add``) counts its launches (:func:`launch_counts`,
+``ordered_scatter_add``, ``ordered_rows_add``) counts its launches (:func:`launch_counts`,
 :func:`reset_launch_counts`), so a run can show that its main path went
 through the kernels.  A launch recorded into a CUDA graph
 (:class:`CountedGraph`) is counted on every replay of the graph, not at the
@@ -42,6 +42,9 @@ _SIGNATURES = {
     ("wkv6", "wkv6"): (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     ("ordered_scatter", "ordered_scatter_add"): (
         _P, _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P,
+    ),
+    ("ordered_rows", "ordered_rows_add"): (
+        _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _P,
     ),
 }
 
@@ -549,6 +552,123 @@ def ordered_scatter_add(
     if call is not None:
         _launch("ordered_scatter", "ordered_scatter_add", *call[0])
     return out
+
+
+# ---------------------------------------------------------------------------
+# ordered_rows_add: operand-order scatter-adds of wide rows, and the
+# autograd functions built on it (the embedding lookup's backward, the MoE
+# dispatch and combine)
+# ---------------------------------------------------------------------------
+
+_ROWS_DTYPES = {torch.float32: (0, 4), torch.float64: (1, 2), torch.bfloat16: (2, 2)}
+
+
+def ordered_rows_add(
+    out: torch.Tensor, index: torch.Tensor, source: torch.Tensor, *, plain: bool = False
+) -> torch.Tensor:
+    """``out[index[e]] += source[e]`` row by row in operand order, in place,
+    rows of any width (``out`` (n, ...), ``source`` (E, ...) of the same
+    trailing shape and dtype: float32, float64 or bfloat16, each bfloat16
+    add rounded); rows whose index lies outside ``0 .. n - 1`` are dropped.
+    Bit-identical to :func:`.ref.ordered_rows_add`.
+
+    On the card the rows are partitioned stably by target with
+    ``torch.sort(stable=True)`` (which does not synchronise), and one
+    launch of ``csrc/ordered_rows.cu`` folds each target's rows in order, a
+    CTA a (target, column tile), over whichever is smaller, the n targets
+    (their first rows from ``torch.searchsorted``) or the E rows (a CTA a
+    run of equal keys).  Nothing synchronises, so a call records into a
+    CUDA graph.
+    """
+    if out.dtype not in _ROWS_DTYPES or source.dtype != out.dtype:
+        raise TypeError(f"ordered_rows_add: out and source of one dtype in float32, float64 or "
+                        f"bfloat16, got {out.dtype} and {source.dtype}")
+    if index.dtype.is_floating_point or index.dtype.is_complex or index.dtype == torch.bool:
+        raise TypeError(f"ordered_rows_add: an integer index, got {index.dtype}")
+    n, e = out.shape[0], index.shape[0]
+    if index.ndim != 1 or tuple(source.shape) != (e,) + tuple(out.shape[1:]):
+        raise ValueError(f"ordered_rows_add: index (E,) and source (E, ...) rows of out's "
+                         f"{tuple(out.shape[1:])}, got {tuple(index.shape)} and "
+                         f"{tuple(source.shape)}")
+    if out.device.type == "cpu" or plain:
+        return ref.ordered_rows_add(out, index, source)
+    if out.device.type != "cuda" or index.device != out.device or source.device != out.device:
+        raise ValueError(f"ordered_rows_add runs on CPU or CUDA tensors, got out on "
+                         f"{out.device}, index on {index.device}, source on {source.device}")
+    if not out.is_contiguous():
+        raise ValueError("ordered_rows_add: out not contiguous")
+    if e >= 2**31 or n >= 2**31 - 1:
+        raise ValueError(f"ordered_rows_add: fewer than 2**31 rows and targets, got {e} and {n}")
+    width = math.prod(out.shape[1:])
+    if n == 0 or e == 0 or width == 0:
+        return out
+    stream = _stream(out.device)
+    source = source.contiguous()
+    code, vec = _ROWS_DTYPES[out.dtype]
+    align = vec * out.element_size()
+    if width % vec or out.data_ptr() % align or source.data_ptr() % align:
+        vec = 1
+    key = torch.where((index >= 0) & (index < n), index, n).to(torch.int32)
+    keys, perm = torch.sort(key, stable=True)
+    starts = None
+    if n <= e:  # target mode: a CTA a target
+        starts = torch.searchsorted(keys, torch.arange(n + 1, dtype=torch.int32,
+                                                       device=out.device), out_int32=True)
+    _launch("ordered_rows", "ordered_rows_add", keys.data_ptr(), perm.data_ptr(),
+            None if starts is None else starts.data_ptr(), source.data_ptr(), out.data_ptr(),
+            code, e, n, width, vec, stream)
+    return out
+
+
+class _OrderedGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, index):
+        n = table.shape[0]
+        keep = (index >= 0) & (index < n)
+        rows = table[torch.where(keep, index, 0)]
+        ctx.save_for_backward(index)
+        ctx.n = n
+        return torch.where(keep.reshape(keep.shape + (1,) * (table.ndim - 1)), rows, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        rows = grad.reshape((index.numel(),) + tuple(grad.shape[index.ndim:]))
+        out = torch.zeros((ctx.n,) + tuple(rows.shape[1:]), dtype=grad.dtype, device=grad.device)
+        return ordered_rows_add(out, index.reshape(-1), rows.contiguous()), None
+
+
+class _OrderedScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, index, source):
+        ctx.save_for_backward(index)
+        ctx.n = n
+        out = torch.zeros((n,) + tuple(source.shape[1:]), dtype=source.dtype,
+                          device=source.device)
+        return ordered_rows_add(out, index, source.contiguous())
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        keep = (index >= 0) & (index < ctx.n)
+        rows = grad[torch.where(keep, index, 0)]
+        return None, None, torch.where(keep.reshape((-1,) + (1,) * (grad.ndim - 1)), rows, 0)
+
+
+def ordered_gather(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``table[index]`` (shape ``index.shape + table.shape[1:]``); an index
+    outside ``0 .. len(table) - 1`` gathers zeros.  Its gradient adds the
+    incoming rows into zeros with :func:`ordered_rows_add`, in operand order
+    (rows out of range dropped), where CUDA's backward of ``table[index]``
+    adds with atomics in any order."""
+    return _OrderedGather.apply(table, index)
+
+
+def ordered_scatter_rows(n: int, index: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+    """``n`` rows of zeros, ``source[e]`` added into row ``index[e]`` in
+    operand order (:func:`ordered_rows_add`; rows out of range dropped).
+    Its gradient gathers the incoming rows (zeros for the dropped ones)."""
+    return _OrderedScatterRows.apply(n, index, source)
 
 
 class CountedGraph:

@@ -490,6 +490,43 @@ def ordered_scatter_add(
     return out.copy_(host) if out.device.type != "cpu" else out
 
 
+def ordered_rows_add(
+    out: torch.Tensor, index: torch.Tensor, source: torch.Tensor
+) -> torch.Tensor:
+    """``out[index[e]] += source[e]`` row by row in operand order, in place,
+    for rows of any width; rows whose index lies outside ``0 .. len(out) -
+    1`` are dropped.  A bfloat16 add is the float32 sum rounded to bfloat16
+    after every add (np.add.at's over ml_dtypes' bfloat16, and XLA's).
+
+    An explicit stable partition, then a fold: the row numbers sorted
+    stably by target, and at step ``j`` the ``j``-th row of every target
+    that has one added to it, each target once a step, so no add depends on
+    ``index_add_``'s order.  The steps are as many as the longest target's
+    rows (a read back to the host: this version is not for CUDA graphs).
+    """
+    n, e = out.shape[0], index.shape[0]
+    if n == 0 or e == 0:
+        return out
+    flat = out.view(n, -1)
+    src = source.reshape(e, -1)
+    idx = index.long()
+    key = torch.where((idx >= 0) & (idx < n), idx, n)
+    sorted_key, perm = torch.sort(key, stable=True)
+    starts = torch.searchsorted(sorted_key, torch.arange(n + 1, device=idx.device))
+    counts = starts[1:] - starts[:-1]
+    # targets by falling count: at step j the active targets are a prefix
+    by_count = torch.sort(counts, descending=True, stable=True)
+    active = torch.bincount(by_count.values, minlength=1).flip(0).cumsum(0).flip(0).tolist()
+    for j in range(1, len(active)):
+        tj = by_count.indices[:active[j]]
+        rows = perm[starts[tj] + (j - 1)]
+        if out.dtype == torch.bfloat16:
+            flat[tj] = (flat[tj].float() + src[rows].float()).to(torch.bfloat16)
+        else:
+            flat[tj] = flat[tj] + src[rows]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # wkv6: the RWKV-6 linear recurrence with data-dependent decay.  No bitwise
 # contract: the kernel and the reference's jnp versions are held to float

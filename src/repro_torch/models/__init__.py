@@ -1,6 +1,7 @@
 """Model zoo of the port (``repro.models``' counterpart): configuration,
-parameter declarations, shared layers, attention, and the dense (GQA
-transformer) and ssm (RWKV-6) families.  The other families come with the
+parameter declarations, shared layers, attention (GQA and MLA), the MoE
+block, and the dense (GQA transformer), moe (deepseek-v3, kimi-k2) and ssm
+(RWKV-6) families.  The other families come with the
 ROADMAP queue 1 items that :data:`.config.FAMILY_ITEMS` names."""
 from .config import (
     EncDecCfg,

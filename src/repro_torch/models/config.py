@@ -21,7 +21,6 @@ Family = Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
 
 # The ROADMAP queue 1 item that ports each family the port does not run yet.
 FAMILY_ITEMS = {
-    "moe": "Model zoo: MoE with MLA",
     "hybrid": "Model zoo: the hybrid family",
     "audio": "Model zoo: audio",
     "vlm": "Model zoo: VLM",

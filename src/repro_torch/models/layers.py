@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from .params import ParamDecl
 
 
@@ -85,7 +86,11 @@ def embed_decls(vocab: int, d_model: int) -> ParamDecl:
 
 
 def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]``, whose gradient adds the rows of repeated tokens in
+    operand order (:func:`..kernels.ops.ordered_gather`), as XLA's scatter
+    does: the backward of ``table[tokens]`` on CUDA adds with atomics, in an
+    order that changes from run to run."""
+    return ops.ordered_gather(table, tokens)
 
 
 def lm_logits(x: torch.Tensor, wout: torch.Tensor) -> torch.Tensor:

@@ -185,9 +185,10 @@ def test_cpu_wrappers_do_not_count_launches():
     ops.sparse_bid_eval(*args, 5)
     ops.sparse_bid_eval(*args, 5, 2)
     ops.ordered_scatter_add(torch.zeros(3), torch.tensor([0, 2, 0]), torch.ones(3))
+    ops.ordered_rows_add(torch.zeros(3, 2), torch.tensor([0, 2, 0]), torch.ones(3, 2))
     assert ops.launch_counts() == {
         "bid_eval": 0, "sparse_bid_eval_z": 0, "sparse_bid_eval_partials": 0,
-        "sparse_bid_eval_csr_z": 0, "wkv6": 0, "ordered_scatter_add": 0,
+        "sparse_bid_eval_csr_z": 0, "wkv6": 0, "ordered_scatter_add": 0, "ordered_rows_add": 0,
     }
 
 

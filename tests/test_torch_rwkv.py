@@ -237,8 +237,8 @@ def test_serve_cli_runs_on_the_cpu():
 
 
 def test_unported_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="Model zoo: MoE with MLA"):
-        get_config("deepseek-v3-671b")
+    with pytest.raises(NotImplementedError, match="Model zoo: VLM"):
+        get_config("pixtral-12b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_smoke("rwkv6-7b").replace(name="hybrid-like", family="hybrid")

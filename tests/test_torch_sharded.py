@@ -114,6 +114,7 @@ auto = pt.make_fleet_economy(seed=seeds[1], device="cpu")  # settle_mesh=None: a
 out["auto"] = auto.run_epoch()
 out["calls"] = (explicit, len(sharded_calls) - explicit)
 pickle.dump(out, open(f"{tmp}/rank{rank}.pkl", "wb"))
+dist.barrier()  # no rank tears its connections down while a peer still uses them
 dist.destroy_process_group()
 """
 
