@@ -66,8 +66,11 @@ on the card after a ``FAULT_STEP`` crash, bit for bit; and one step of
 ``qwen3-1.7b`` at 2 layers and of the deepseek smoke config under
 ``torch.use_deterministic_algorithms(True)`` in a process of its own, two
 steps' gradients equal.  ``ordered_rows_add`` is held bit for bit
-(``same_bits``) at the prefill's and a decode step's combine, the qwen3
-embedding gradient, and edge shapes (``rows_edges``).
+(``same_bits``, eager and replayed from a CUDA graph) at the prefill's and
+a decode step's combine, the qwen3 embedding gradient, and edge shapes on
+each of its three routes (``rows_edges``); each call's route and the
+kernels it launches (``torch.profiler``) are logged, and at the path's
+calls it is timed whole and as its partition and its fold.
 Each kernel is then held against its plain version and timed at its path's
 shapes on its path's inputs (for ``wkv6``, the tensors layer 0 and layer 31
 hand it in the served prefill).  Phase [4] also provisions the quickstart
@@ -126,6 +129,7 @@ import functools
 import gc
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -2425,6 +2429,7 @@ MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 128, 16
 LATENT_VS_EXPANDED_RMS = 5e-2
 ROWS_EDGE_WIDTHS = (7_168, 2_048, 1, 33)
 ROWS_EDGE_E, ROWS_EDGE_N, ROWS_EDGE_CHAIN = 12_000, 64, 10_000
+ROWS_EDGE_SCAN = 4_096  # rows of the scan route's one-target books
 MOE_TRAIN = {"deepseek-v3-671b": 1, "kimi-k2-1t-a32b": 0}  # smoke configs, their mtp_depth
 MOE_TRAIN_ARGS = ["--smoke", "--steps", "6", "--batch", "4", "--seq", "64", "--seed", "0"]
 MOE_CARD_CPU_RTOL = 1e-4  # float32 smoke: products summed in another order on the card
@@ -2464,22 +2469,122 @@ def rows_bound(torch, out, index, source, latency) -> dict:
             "bound_by": "operations" if chain_ms > byte_ms else "bytes"}
 
 
-def rows_call(torch, ops, label, out, index, source, latency, timed=True) -> dict:
+def rows_halves(ops):
+    """``ordered_rows_partition`` and ``ordered_rows_fold``, with
+    ``ordered_rows_add``'s arguments."""
+    from repro_torch.kernels import build
+
+    lib = build.library("ordered_rows")
+    halves = {}
+    for half in ("partition", "fold"):
+        f = getattr(lib, f"ordered_rows_{half}")
+        f.restype = ctypes.c_int
+        f.argtypes = ops._SIGNATURES[("ordered_rows", "ordered_rows_add")]
+        halves[half] = f
+    return halves
+
+
+# the kernels a call launches on each route (the sort route's partition is
+# torch's); PROFILE_CALLS calls are profiled in one window
+ROWS_ROUTE_KERNELS = {"scan": {"scan_kernel"}, "smem": {"partition_kernel", "fold_kernel"},
+                      "sort": {"fold_kernel"}}
+PROFILE_CALLS, PROFILE_TRIES = 3, 3
+
+
+def kernel_name(name: str) -> str:
+    """A profiled kernel's name without its namespace and arguments."""
+    m = re.search(r"(\w+<[^(]*)\(", name) or re.search(r"(\w+)\(", name)
+    return m[1] if m else name
+
+
+def rows_launched(torch, ops, out, index, source, want: set) -> list:
+    """The kernels (and copies, memsets) that PROFILE_CALLS
+    ``ordered_rows_add`` calls put on the card, by name, from
+    ``torch.profiler``'s CUDA activity in one window.  The profiler drops a
+    device event now and then (about one window in 30 on the card), so a
+    window that misses one of the kernels in ``want`` is profiled again, at
+    most PROFILE_TRIES times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = out.clone()
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_CALLS):
+                ops.ordered_rows_add(buf, index, source)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if want <= {kernel_name(k).split("<")[0] for k in names}:
+            break
+    return names
+
+
+def rows_call(torch, ops, label, out, index, source, latency, timed=True, route=None) -> dict:
     """One ``ordered_rows_add`` call held bit for bit against its plain
-    version; when ``timed``, timed (the wrapper whole: its stable sort, its
-    searchsorted and the fold), beside ``index_add_`` of the kept rows
-    (atomics, unordered), the plain version and its bounds."""
+    version, eager and replayed from a CUDA graph, on the route ``route``
+    when given (``ops.rows_plan``'s); the kernels PROFILE_CALLS calls
+    launch, listed by the profiler: the route's own (ROWS_ROUTE_KERNELS),
+    each at most once a call, and nothing else unless the route is "sort".
+    When ``timed``, timed whole, as its partition
+    (none on the scan route; ``ops.rows_sort_partition`` on the sort route)
+    and its fold alone, beside ``index_add_`` of the kept rows (atomics,
+    unordered), the plain version and its bounds."""
     got = ops.ordered_rows_add(out.clone(), index, source)
     want = ops.ordered_rows_add(out.clone(), index, source, plain=True)
     torch.cuda.synchronize()
     check(same_bits(torch, got, want), f"ordered_rows_add {label}: differs from the plain "
           f"version by up to {float((got.double() - want.double()).abs().max())}")
+    replayed = out.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()  # captured without the graph context's gc and cache flush
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            ops.ordered_rows_add(replayed, index, source)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    check(same_bits(torch, replayed, want), f"ordered_rows_add {label}: a CUDA graph's replay "
+          "differs from the plain version")
+    plan = ops.rows_args(out.clone(), index, source)[0]
+    check(route is None or plan.route == route, f"ordered_rows_add {label}: route {plan.route}, "
+          f"expected {route}")
+    want = ROWS_ROUTE_KERNELS[plan.route]
+    names = rows_launched(torch, ops, out, index, source, want)
+    seen = [kernel_name(k).split("<")[0] for k in names]
+    check(want <= set(seen), f"ordered_rows_add {label} ({plan.route}): the profiler saw "
+          f"{names}")
+    if plan.route != "sort":  # only its own kernels, each once a call
+        check(set(seen) == want and len(names) <= PROFILE_CALLS * len(want),
+              f"ordered_rows_add {label} ({plan.route}): launches other than its own "
+              f"kernels: {names}")
     row = {"call": label, "dtype": str(out.dtype).removeprefix("torch."),
            "index_dtype": str(index.dtype).removeprefix("torch."),
-           **rows_bound(torch, out, index, source, latency), "max_abs_err": 0.0}
+           **rows_bound(torch, out, index, source, latency), "max_abs_err": 0.0,
+           "rows_route": plan.route,
+           **{k: v for k, v in plan._asdict().items() if k not in ("route", "smem_bytes")},
+           "kernels_launched": list(dict.fromkeys(kernel_name(k) for k in names)),
+           "profiled_calls": PROFILE_CALLS, "profiled_events": len(names)}
     if timed:
         buf = out.clone()
         row["ms"] = graph_ms(torch, lambda: ops.ordered_rows_add(buf, index, source))
+        halves = rows_halves(ops)
+        _, args, held = ops.rows_args(buf, index, source)
+
+        def half(name):  # on the stream current at the call: graph_ms captures on its own
+            err = halves[name](*args[:-1], torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"ordered_rows_{name}: cudaError {err}")
+
+        partition = (functools.partial(ops.rows_sort_partition, held[0], out.shape[0], held[2])
+                     if plan.route == "sort" else functools.partial(half, "partition"))
+        partition()  # the fold alone folds this partition
+        row["partition_ms"] = 0.0 if plan.route == "scan" else graph_ms(torch, partition)
+        row["fold_ms"] = graph_ms(torch, functools.partial(half, "fold"))
         keep = (index >= 0) & (index < out.shape[0])
         kept_i, kept_s = index[keep], source[keep]
         lib = out.clone()
@@ -2492,40 +2597,82 @@ def rows_call(torch, ops, label, out, index, source, latency, timed=True) -> dic
         row["plain_ms"] = (time.perf_counter() - t0) * 1e3 / 3
     log(f"  ordered_rows_add {label}: {row['rows']} rows ({row['kept']} kept, {row['touched']} "
         f"targets touched, longest chain {row['longest_chain']}) into {row['targets']} x "
-        f"{row['width']} {row['dtype']}, {row['index_dtype']} index"
-        + (f": {row['ms']:.4f} ms; bounds: bytes {row['byte_bound_ms']:.4f}, chain "
+        f"{row['width']} {row['dtype']}, {row['index_dtype']} index; route {plan.route} (vec "
+        f"{plan.vec}, {plan.threads} threads x {plan.tiles} tiles, grid {plan.grid}"
+        + (f", {plan.passes} pass(es) of {plan.bits} bits" if plan.route == "smem" else "")
+        + f"); launches {row['kernels_launched']} ({len(names)} events in "
+        f"{PROFILE_CALLS} calls)"
+        + (f": {row['ms']:.4f} ms (partition {row['partition_ms']:.4f}, fold "
+           f"{row['fold_ms']:.4f}); bounds: bytes {row['byte_bound_ms']:.4f}, chain "
            f"{row['chain_bound_ms']:.4f} ms; index_add_ (atomics, unordered) "
            f"{row['library_ms']:.4f} ms; plain {row['plain_ms']:.2f} ms" if timed else "")
-        + "; bit-identical to the plain version")
+        + "; bit-identical to the plain version, eager and replayed")
     return row
+
+
+def rows_edge_book(torch, dev, g, e, n, width, dtype, index_dtype, chain=0, offset=0):
+    """(out, index, source): ``e`` rows into ``n`` targets, the first
+    ``chain`` of a random permutation of the rows on target 0, target 1
+    none (when n > 2), 1% of the indices out of range (negative, past n,
+    and for an int64 index past int32); ``source`` starts ``offset``
+    elements into its storage."""
+    index = torch.randint(min(2, n - 1), n, (e,), generator=g, device=dev)
+    if chain:
+        index[torch.randperm(e, generator=g, device=dev)[:chain]] = 0
+    bad = torch.randperm(e, generator=g, device=dev)[:max(e // 100, 1)]
+    index[bad[0::3]] = -1
+    index[bad[1::3]] = n + 3
+    index[bad[2::3]] = 2**33 + 1 if index_dtype == torch.int64 else -(2**31)
+    storage = torch.randn((e * width + offset,), generator=g, device=dev).to(dtype)
+    source = storage[offset:].view(e, width)
+    out = torch.randn((n, width), generator=g, device=dev).to(dtype)
+    return out, index.to(index_dtype), source
 
 
 def rows_edges(torch, ops, dev, latency) -> list:
     """``ordered_rows_add`` at edge shapes, each bit for bit against its
-    plain version: bfloat16, float32 and float64 rows of ROWS_EDGE_WIDTHS
-    columns, ROWS_EDGE_E rows into ROWS_EDGE_N targets, target 0 taking
-    ROWS_EDGE_CHAIN rows, target 1 none, 1% of the indices out of range on
-    either side (a CTA a target); and 2,000 rows into 100,000 targets (a CTA
-    a run of equal keys), int32 index."""
+    plain version on the route it is meant to take (``rows_edge_book``
+    books; every book has indices out of range on both sides):
+    bfloat16, float32 and float64 rows of ROWS_EDGE_WIDTHS columns,
+    ROWS_EDGE_E rows into ROWS_EDGE_N targets with a chain of
+    ROWS_EDGE_CHAIN (smem); 2,000 rows into 100,000 targets, int32 (smem,
+    two passes); ROWS_EDGE_SCAN rows all on one target (scan); the
+    one-CTA limit and one past it (smem, sort), int32 and int64; and
+    sources one element off alignment (vec 1) on the scan and smem
+    routes."""
     g = torch.Generator(device=dev).manual_seed(10)
+    limit = ops.ROWS_SMEM_MAX
+    cases = [(f"{str(dtype)[6:]} width {width}, a chain of {ROWS_EDGE_CHAIN:,}", "smem",
+              (ROWS_EDGE_E, ROWS_EDGE_N, width, dtype, torch.int64, ROWS_EDGE_CHAIN))
+             for dtype in (torch.bfloat16, torch.float32, torch.float64)
+             for width in ROWS_EDGE_WIDTHS]
+    cases += [
+        ("2,000 rows into 100,000 targets", "smem",
+         (2_000, 100_000, 33, torch.float32, torch.int32)),
+        (f"{ROWS_EDGE_SCAN:,} rows on one target, bfloat16 width 7,168", "scan",
+         (ROWS_EDGE_SCAN, 1, 7_168, torch.bfloat16, torch.int64, ROWS_EDGE_SCAN)),
+        (f"{ROWS_EDGE_SCAN:,} rows on one target, float64 width 33, int32", "scan",
+         (ROWS_EDGE_SCAN, 1, 33, torch.float64, torch.int32, ROWS_EDGE_SCAN)),
+        (f"the limit, {limit:,} rows into 300, float32 width 2,048, int64", "smem",
+         (limit, 300, 2_048, torch.float32, torch.int64, 4_000)),
+        (f"the limit, {limit:,} rows into 300, bfloat16 width 1, int32", "smem",
+         (limit, 300, 1, torch.bfloat16, torch.int32, 4_000)),
+        (f"past the limit, {limit + 1:,} rows into 300, float32 width 2,048, int64", "sort",
+         (limit + 1, 300, 2_048, torch.float32, torch.int64, 4_000)),
+        (f"past the limit, {limit + 1:,} rows into 300, bfloat16 width 33, int32", "sort",
+         (limit + 1, 300, 33, torch.bfloat16, torch.int32, 4_000)),
+    ]
+    cases += [(f"{str(dtype)[6:]} source one element off alignment, {route}", route,
+               (e, n, 2_048, dtype, torch.int64, 0, 1))
+              for dtype in (torch.bfloat16, torch.float32, torch.float64)
+              for route, e, n in (("scan", 1_024, 4), ("smem", 5_120, 512))]
     rows = []
-    for dtype in (torch.bfloat16, torch.float32, torch.float64):
-        for width in ROWS_EDGE_WIDTHS:
-            index = torch.randint(2, ROWS_EDGE_N, (ROWS_EDGE_E,), generator=g, device=dev)
-            index[torch.randperm(ROWS_EDGE_E, generator=g, device=dev)[:ROWS_EDGE_CHAIN]] = 0
-            out_of_range = torch.randperm(ROWS_EDGE_E, generator=g, device=dev)[:ROWS_EDGE_E // 100]
-            index[out_of_range[::2]] = -1
-            index[out_of_range[1::2]] = ROWS_EDGE_N + 3
-            source = torch.randn((ROWS_EDGE_E, width), generator=g, device=dev).to(dtype)
-            out = torch.randn((ROWS_EDGE_N, width), generator=g, device=dev).to(dtype)
-            rows.append(rows_call(torch, ops, f"edge: {str(dtype)[6:]} width {width}, "
-                                  f"a chain of {ROWS_EDGE_CHAIN:,}", out, index, source, latency,
-                                  timed=False))
-    index = torch.randint(0, 100_000, (2_000,), generator=g, device=dev, dtype=torch.int32)
-    rows.append(rows_call(torch, ops, "edge: 2,000 rows into 100,000 targets",
-                          torch.zeros((100_000, 33), device=dev), index,
-                          torch.randn((2_000, 33), generator=g, device=dev), latency,
-                          timed=False))
+    for label, route, book in cases:
+        out, index, source = rows_edge_book(torch, dev, g, *book)
+        rows.append(rows_call(torch, ops, f"edge: {label}", out, index, source, latency,
+                              timed=False, route=route))
+    check(all(r["vec"] == 1 for r in rows if "alignment" in r["call"]),
+          "an unaligned source took vectors")
     return rows
 
 
@@ -2937,7 +3084,9 @@ def moe_paths(torch, np, dev, kernels: list, dense_train_launches: dict) -> None
         "replaces": "src/repro/models/moe.py:136-138 (XLA scatter-add on the CPU, no "
                     "pallas_call; also the backward of moe.py:122 and of the embedding lookups)",
         "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": 0.0,
-        "ms": prefill["ms"], "plain_ms": prefill["plain_ms"], "bound_ms": prefill["bound_ms"],
+        "ms": prefill["ms"], "partition_ms": prefill["partition_ms"],
+        "fold_ms": prefill["fold_ms"], "rows_route": prefill["rows_route"],
+        "plain_ms": prefill["plain_ms"], "bound_ms": prefill["bound_ms"],
         "bound_by": prefill["bound_by"], "library_ms": prefill["library_ms"],
         "byte_bound_ms": prefill["byte_bound_ms"], "chain_bound_ms": prefill["chain_bound_ms"],
         "add_latency_ns": latency, "path": "deepseek-v3-671b served (4 layers), the training "

@@ -44,7 +44,8 @@ _SIGNATURES = {
         _P, _I, _P, _I, ctypes.c_longlong, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P,
     ),
     ("ordered_rows", "ordered_rows_add"): (
-        _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _P,
+        _P, _I, _P, _P, _I, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P,
     ),
 }
 
@@ -560,7 +561,137 @@ def ordered_scatter_add(
 # dispatch and combine)
 # ---------------------------------------------------------------------------
 
-_ROWS_DTYPES = {torch.float32: (0, 4), torch.float64: (1, 2), torch.bfloat16: (2, 2)}
+# The wrapper picks one of three routes from the shapes (rows_plan), as
+# csrc/ordered_rows.cu describes them; the constants below are the
+# kernel's (k-names there) or the plan's own.  Change them with the replay
+# in tests/test_torch_ordered_rows.py.
+ROWS_FOLD_THREADS = 256  # kFoldThreads: a fold or scan CTA's threads, at most
+ROWS_FOLD_CTAS = 6  # kFoldCtas: fold CTAs an SM holds at once (its launch bounds)
+ROWS_SCAN_ITEMS = 4  # kScanItems: index rows a scan thread reads a round
+ROWS_AHEAD = 4  # kAhead: rows of a chain in flight a thread (kAhead + 1 ring slots)
+ROWS_SMEM_MAX = 16_384  # kMaxRows: the rows the one-CTA partition takes
+ROWS_DIGIT_BITS = 9  # kDigitBits: key bits a partition pass, at most
+ROWS_PART_WARPS = 32  # kPartWarps: the partition CTA's warps
+# the scan route: each of its n · tiles CTAs reads the whole index, so it
+# is taken only while that is little (a decode step's combine: 16 CTAs of
+# 8 KB), for few rows (a CTA scans them in rounds) and few CTAs
+ROWS_SCAN_MAX_ROWS = 4_096
+ROWS_SCAN_MAX_CTAS = 1_024
+ROWS_SCAN_BYTES = 2 * 2**20
+H100_SMS = 132
+_ROWS_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+
+class RowsPlan(NamedTuple):
+    """How ``ordered_rows_add`` runs a call: ``route`` "scan" (one launch,
+    a CTA a (target, column tile), no partition), "smem" (the one-CTA
+    partition, then the fold) or "sort" (``torch.sort``, then the fold);
+    ``vec`` columns a thread; a CTA's ``threads``; ``tiles`` column tiles a
+    row; ``grid`` the scan's or the fold's CTAs; the smem partition's
+    ``passes`` of ``bits`` key bits and its dynamic shared memory
+    ``smem_bytes``."""
+
+    route: str
+    vec: int
+    threads: int
+    tiles: int
+    grid: int
+    passes: int
+    bits: int
+    smem_bytes: int
+
+
+def rows_plan(e: int, n: int, width: int, dtype: torch.dtype, index_dtype: torch.dtype,
+              aligned: int, sms: int = H100_SMS) -> RowsPlan:
+    """The plan of ``e`` rows of ``width`` ``dtype`` into ``n`` targets,
+    with an int32 or int64 index, ``out`` and ``source`` both aligned to
+    ``aligned`` bytes (a power of two), on a card of ``sms`` SMs: from the
+    shapes alone.  A thread takes the widest vector of at most 16 bytes that
+    divides the width and the alignment; a CTA at most ROWS_FOLD_THREADS
+    threads, as few tiles a row as that allows and the threads spread evenly
+    over them, in whole warps."""
+    size = dtype.itemsize
+    vec = 16 // size
+    while vec > 1 and (width % vec or aligned % (vec * size)):
+        vec //= 2
+    vectors = width // vec
+    tiles = -(-vectors // ROWS_FOLD_THREADS)
+    threads = -(-vectors // tiles)
+    threads = -(-threads // 32) * 32
+    if (e <= ROWS_SCAN_MAX_ROWS and n * tiles <= ROWS_SCAN_MAX_CTAS
+            and n * tiles * e * index_dtype.itemsize <= ROWS_SCAN_BYTES):
+        return RowsPlan("scan", vec, threads, tiles, n * tiles, 0, 0, 0)
+    grid = min(min(n, e) * tiles, sms * ROWS_FOLD_CTAS)
+    if e > ROWS_SMEM_MAX:
+        return RowsPlan("sort", vec, threads, tiles, grid, 0, 0, 0)
+    key_bits = (n - 1).bit_length()
+    passes = max(1, -(-key_bits // ROWS_DIGIT_BITS))
+    bits = -(-key_bits // passes)
+    smem = 4 * e + 4 * ROWS_PART_WARPS * ((1 << bits) + 1) + 4 * (e + e % 2)
+    return RowsPlan("smem", vec, threads, tiles, grid, passes, bits, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def rows_args(out: torch.Tensor, index: torch.Tensor, source: torch.Tensor):
+    """``(plan, args, buffers)``: the plan of an ``ordered_rows_add`` call on
+    the card, the C arguments of the kernel entry points (``args[-1]`` the
+    stream current now), and the tensors they point into, to be kept alive
+    until the launch; or None when no row can land (no rows, targets or
+    columns)."""
+    if out.device.type != "cuda" or index.device != out.device or source.device != out.device:
+        raise ValueError(f"ordered_rows_add runs on CPU or CUDA tensors, got out on "
+                         f"{out.device}, index on {index.device}, source on {source.device}")
+    if not out.is_contiguous():
+        raise ValueError("ordered_rows_add: out not contiguous")
+    n, e = out.shape[0], index.shape[0]
+    if e >= 2**31 or n >= 2**31 - 1:
+        raise ValueError(f"ordered_rows_add: fewer than 2**31 rows and targets, got {e} and {n}")
+    width = math.prod(out.shape[1:])
+    if n == 0 or e == 0 or width == 0:
+        return None
+    if index.dtype not in (torch.int32, torch.int64):
+        index = index.long()
+    index = index.contiguous()
+    source = source.contiguous()
+    aligned = math.gcd(out.data_ptr(), source.data_ptr(), 16)
+    plan = rows_plan(e, n, width, out.dtype, index.dtype, aligned,
+                     _sms(out.device.index if out.device.index is not None
+                          else torch.cuda.current_device()))
+    scratch = None
+    if plan.route != "scan":  # perm, run starts, run targets, the run count
+        scratch = torch.empty(e + 2 * (min(n, e) + 1) + 1, dtype=torch.int32, device=out.device)
+    args = (index.data_ptr(), int(index.dtype == torch.int64), source.data_ptr(),
+            out.data_ptr(), _ROWS_DTYPES[out.dtype], e, n, width, plan.vec,
+            ("scan", "smem", "sort").index(plan.route), plan.threads, plan.tiles, plan.grid,
+            plan.passes, plan.bits, None if scratch is None else scratch.data_ptr(),
+            _stream(out.device))
+    return plan, args, (index, source, scratch)
+
+
+def rows_sort_partition(index: torch.Tensor, n: int, scratch: torch.Tensor) -> None:
+    """The sort route's partition, into ``scratch`` as the kernel's own
+    writes it: the kept rows stably sorted by target (``torch.sort``), the
+    starts and targets of the runs of equal targets, the run count.  Rows
+    out of range are keyed ``n`` and sort last; the first of them starts one
+    more run, so that run starts[count] is the kept rows' count.  Nothing
+    synchronises."""
+    e = index.shape[0]
+    cap = min(n, e)
+    key = torch.where((index >= 0) & (index < n), index, n).to(torch.int32)
+    keys, perm = torch.sort(key, stable=True)
+    head = torch.ones(e, dtype=torch.bool, device=index.device)
+    head[1:] = keys[1:] != keys[:-1]
+    starts = torch.searchsorted(torch.cumsum(head, 0, dtype=torch.int32),
+                                torch.arange(1, cap + 2, dtype=torch.int32, device=index.device),
+                                out_int32=True)
+    scratch[:e] = perm
+    scratch[e:e + cap + 1] = starts
+    scratch[e + cap + 1:e + 2 * cap + 2] = keys[starts.clamp(max=e - 1)]
+    scratch[-1:] = (head & (keys < n)).sum(dtype=torch.int32)
 
 
 def ordered_rows_add(
@@ -572,13 +703,12 @@ def ordered_rows_add(
     add rounded); rows whose index lies outside ``0 .. n - 1`` are dropped.
     Bit-identical to :func:`.ref.ordered_rows_add`.
 
-    On the card the rows are partitioned stably by target with
-    ``torch.sort(stable=True)`` (which does not synchronise), and one
-    launch of ``csrc/ordered_rows.cu`` folds each target's rows in order, a
-    CTA a (target, column tile), over whichever is smaller, the n targets
-    (their first rows from ``torch.searchsorted``) or the E rows (a CTA a
-    run of equal keys).  Nothing synchronises, so a call records into a
-    CUDA graph.
+    On the card ``csrc/ordered_rows.cu`` reads the index in place by the
+    route :func:`rows_plan` picks from the shapes: "scan" (one launch that
+    scans the index once a (target, column tile)), "smem" (a one-CTA stable
+    partition in shared memory, then the fold) or "sort" (past
+    ROWS_SMEM_MAX rows: :func:`rows_sort_partition`, then the fold).
+    Nothing synchronises, so a call records into a CUDA graph.
     """
     if out.dtype not in _ROWS_DTYPES or source.dtype != out.dtype:
         raise TypeError(f"ordered_rows_add: out and source of one dtype in float32, float64 or "
@@ -592,31 +722,13 @@ def ordered_rows_add(
                          f"{tuple(source.shape)}")
     if out.device.type == "cpu" or plain:
         return ref.ordered_rows_add(out, index, source)
-    if out.device.type != "cuda" or index.device != out.device or source.device != out.device:
-        raise ValueError(f"ordered_rows_add runs on CPU or CUDA tensors, got out on "
-                         f"{out.device}, index on {index.device}, source on {source.device}")
-    if not out.is_contiguous():
-        raise ValueError("ordered_rows_add: out not contiguous")
-    if e >= 2**31 or n >= 2**31 - 1:
-        raise ValueError(f"ordered_rows_add: fewer than 2**31 rows and targets, got {e} and {n}")
-    width = math.prod(out.shape[1:])
-    if n == 0 or e == 0 or width == 0:
+    call = rows_args(out, index, source)
+    if call is None:
         return out
-    stream = _stream(out.device)
-    source = source.contiguous()
-    code, vec = _ROWS_DTYPES[out.dtype]
-    align = vec * out.element_size()
-    if width % vec or out.data_ptr() % align or source.data_ptr() % align:
-        vec = 1
-    key = torch.where((index >= 0) & (index < n), index, n).to(torch.int32)
-    keys, perm = torch.sort(key, stable=True)
-    starts = None
-    if n <= e:  # target mode: a CTA a target
-        starts = torch.searchsorted(keys, torch.arange(n + 1, dtype=torch.int32,
-                                                       device=out.device), out_int32=True)
-    _launch("ordered_rows", "ordered_rows_add", keys.data_ptr(), perm.data_ptr(),
-            None if starts is None else starts.data_ptr(), source.data_ptr(), out.data_ptr(),
-            code, e, n, width, vec, stream)
+    plan, args, (index, _, scratch) = call
+    if plan.route == "sort":
+        rows_sort_partition(index, n, scratch)
+    _launch("ordered_rows", "ordered_rows_add", *args)
     return out
 
 
