@@ -70,7 +70,23 @@ steps' gradients equal.  ``ordered_rows_add`` is held bit for bit
 a decode step's combine, the qwen3 embedding gradient, and edge shapes on
 each of its three routes (``rows_edges``); each call's route and the
 kernels it launches (``torch.profiler``) are logged, and at the path's
-calls it is timed whole and as its partition and its fold.
+calls it is timed whole and as its partition and its fold;
+and phase [11], the hybrid, audio and VLM families at full width and depth
+(float32 weights from seed 0, bf16 activations): ``recurrentgemma-2b``
+serving 4 requests of 64 prompt tokens warmed token by token and 32 greedy
+new ones, ``lm_forward`` prefills at 4 x 2,048 and 1 x 8,192 (blockwise
+attention, window 2,048), token-by-token decode against ``lm_forward``,
+the RG-LRU scan timed alone; ``whisper-medium``'s ``whisper_prefill`` of
+2 x 1,500 frames, 32 greedy steps against its cross cache held against
+the teacher-forced decoder, and ``generate`` as the reference runs it;
+``pixtral-12b`` prefilling 2 x (256 patches + 256 text) and generating 32
+greedy tokens; the three trained through ``launch/train`` (``pixtral-12b``
+cut to 6 layers) twice in a process of its own under
+``torch.use_deterministic_algorithms(True)``, every loss bit for bit, their
+embedding gradients through ``ordered_rows_add``, which is then held and
+timed at those three shapes, and their smoke configs killed after a
+checkpoint and resumed, every loss bit for bit; and each smoke config on
+the card against the CPU.
 Each kernel is then held against its plain version and timed at its path's
 shapes on its path's inputs (for ``wkv6``, the tensors layer 0 and layer 31
 hand it in the served prefill).  Phase [4] also provisions the quickstart
@@ -3098,6 +3114,562 @@ def moe_paths(torch, np, dev, kernels: list, dense_train_launches: dict) -> None
                               "deterministic": determinism}, default=str))
 
 
+# ---------------------------------------------------------------------------
+# [11] the hybrid, audio and VLM families
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH, AUDIO_ARCH, VLM_ARCH = "recurrentgemma-2b", "whisper-medium", "pixtral-12b"
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = 4, 64, 32
+HYBRID_PREFILLS = ((4, 2_048), (1, 8_192))  # the scan path; the blockwise path, window 2,048
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_NEW = 2, 4, 32
+VLM_BATCH, VLM_TEXT, VLM_NEW = 2, 256, 32
+# token-by-token decode against the prefill, bf16 activations: the relative
+# RMS of the last position's logits' difference
+DECODE_VS_PREFILL_RMS = 5e-2
+# trained through launch/train, 3 steps: arch -> (layers, 0 for the config's;
+# batch; seq); pixtral-12b cut to 6 layers (40 need ~196 GB of state)
+ZOO_TRAIN = {HYBRID_ARCH: (0, 2, 512), AUDIO_ARCH: (0, 2, 448), VLM_ARCH: (6, 2, 768)}
+ZOO_CARD_CPU_TOL = 1e-5  # float32 smoke configs: the model path's rtol and atol
+
+
+def rel_rms(torch, a, b) -> float:
+    """The RMS of ``a - b`` relative to ``b``'s, in float32."""
+    d = a.float() - b.float()
+    return float(d.norm() / b.float().norm())
+
+
+def serve_timings(torch, api, params, cfg, cache, cur, idx, new, step_idx):
+    """``new - 1`` greedy steps from ``cur`` at ``idx``, timed on the host
+    clock (ms a step), and one step at ``step_idx`` in a CUDA graph (device
+    ms) → (tokens, host ms, device ms)."""
+    toks = [cur]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(idx, idx + new - 1):
+        logits, cache = api.decode_step(params, cache, cur, i, cfg)
+        cur = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(cur)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
+    device_ms = graph_ms(torch, lambda: api.decode_step(params, cache, cur, step_idx, cfg),
+                         DECODE_GRAPH_CALLS)
+    return torch.cat(toks, 1), host_ms, device_ms
+
+
+def check_generated(torch, out, prompt, new, cfg, launches, label) -> None:
+    """``generate``'s output: the prompt, then ``new`` tokens of the
+    vocabulary, and no kernel launched."""
+    check(tuple(out.shape) == (prompt.shape[0], prompt.shape[1] + new)
+          and torch.equal(out[:, :prompt.shape[1]], prompt.to(torch.int32))
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{label}: generated tokens")
+    check(sum(launches.values()) == 0, f"{label}: a kernel ran on the serving path: {launches}")
+
+
+def fresh_model(torch, dev, cfg, label):
+    """``cfg``'s float32 weights from seed 0 on the card, the peak reset."""
+    from repro_torch.models import get_api
+    from repro_torch.models.params import count_params, init_params, tree_bytes
+
+    api = get_api(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
+                         torch.float32, dev)
+    torch.cuda.synchronize()
+    n, size = count_params(api.decls(cfg)), tree_bytes(params)
+    log(f"[11{label}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query / {cfg.num_kv_heads} KV heads of {cfg.hd()}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, activations {cfg.act_dtype}; {n:,} float32 parameters from "
+        f"seed 0 ({size / 1e9:.2f} GB, init {time.perf_counter() - t0:.2f} s)")
+    return api, params, n, size
+
+
+def hybrid_serving(torch, dev) -> dict:
+    """(a) recurrentgemma-2b at full width and depth: HYBRID_BATCH requests of
+    HYBRID_PROMPT tokens warmed token by token and HYBRID_NEW greedy new
+    ones; lm_forward prefills at HYBRID_PREFILLS (each timed after an
+    untimed first call of its shape); token-by-token decode
+    against lm_forward (bf16, and every position in float32); the RG-LRU
+    scan timed alone at the first prefill's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import griffin
+    from repro_torch.models.attention import FLASH_MIN_KV
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serve.decode import generate
+
+    cfg = get_config(HYBRID_ARCH)
+    api, params, n_params, weight_bytes = fresh_model(torch, dev, cfg, "a")
+    g = cfg.griffin
+    rec_layers = sum(k == "rec" for k in (g.pattern * cfg.num_layers)[:cfg.num_layers])
+    P, N, B = HYBRID_PROMPT, HYBRID_NEW, HYBRID_BATCH
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompt, N)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    check_generated(torch, out, prompt, N, cfg, launches, cfg.name)
+
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, B, P + N, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(P):
+            logits, cache = api.decode_step(params, cache, prompt[:, i:i + 1], i, cfg)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        cur = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+        toks, decode_ms, step_ms = serve_timings(torch, api, params, cfg, cache, cur, P, N,
+                                                 P + N - 1)
+        check(torch.equal(toks, out[:, P:]), "a second run gives other tokens")
+        full, _, _ = lm_forward(params, prompt, cfg)
+        last_rms = rel_rms(torch, logits[:, -1], full[:, -1])
+        agree = float((logits[:, -1].argmax(-1) == full[:, -1].argmax(-1)).float().mean())
+        check(last_rms <= DECODE_VS_PREFILL_RMS,
+              f"token-by-token decode vs lm_forward, bf16: relative RMS {last_rms}")
+        # float32 activations, request 0: every position
+        cfg32 = cfg.replace(act_dtype="float32")
+        chunked, _, _ = lm_forward(params, prompt[:1], cfg32)
+        cache32 = api.init_cache(cfg32, 1, P, device=dev)
+        steps = []
+        for i in range(P):
+            step_logits, cache32 = api.decode_step(params, cache32, prompt[:1, i:i + 1], i, cfg32)
+            steps.append(step_logits[:, 0])
+        per_pos = (chunked - torch.stack(steps, 1)).abs().amax(dim=(0, 2))
+        scale = float(chunked.abs().max())
+        check(float(per_pos.max()) <= LOGITS_TOL * scale,
+              f"float32 decode vs lm_forward: max|d| {float(per_pos.max())} (max {scale})")
+        del cache, cache32, full, chunked, steps, logits
+
+        prefills = []
+        for b, s in HYBRID_PREFILLS:
+            toks_p = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(s))
+            lm_forward(params, toks_p, cfg)  # the shape's first call, untimed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_p, _, _ = lm_forward(params, toks_p, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(tuple(logits_p.shape) == (b, s, cfg.vocab_size)
+                  and bool(torch.isfinite(logits_p[:, -1].float()).all()), f"prefill {b} x {s}")
+            del logits_p
+            prefills.append({"batch": b, "seq": s, "ms": ms,
+                             "bound_ms": 2 * n_params * b * s / FP32_OPS_PER_S * 1e3,
+                             "attention": "blockwise" if s >= FLASH_MIN_KV else "dense"})
+        # the RG-LRU scan alone at the first prefill's shape, float32
+        b, s = HYBRID_PREFILLS[0]
+        gen = torch.Generator(device=dev).manual_seed(2)
+        a = torch.rand((b, s, g.lru_width), generator=gen, device=dev)
+        x = torch.randn((b, s, g.lru_width), generator=gen, device=dev)
+        scan_ms = graph_ms(torch, lambda: griffin.associative_scan(a, x), 3)
+        del a, x
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    scan_share = rec_layers * scan_ms / prefills[0]["ms"]
+    log(f"  generate {B} x ({P} prompt warmed token by token + {N} new) greedy: {serve_ms:.1f} ms "
+        f"(the first call's warm-up included); launches {launches}; request 0 continues with "
+        f"{out[0, P:].tolist()}")
+    log(f"  warm-up of {P} prompt tokens {warm_ms:.1f} ms ({warm_ms / P:.2f} ms a token); decode "
+        f"{decode_ms:.2f} ms a step of {B} tokens on the host clock, {step_ms:.2f} ms on the card "
+        f"(a CUDA graph of the step; idle {1 - step_ms / decode_ms:.1%}); weight-read bound "
+        f"{weight_bytes / 1e9:.2f} GB at 3.35 TB/s = {decode_bound_ms:.2f} ms")
+    log(f"  token-by-token decode vs lm_forward at position {P - 1}: {cfg.act_dtype} relative RMS "
+        f"{last_rms:.3g} (limit {DECODE_VS_PREFILL_RMS}), argmax agrees for {agree:.0%} of "
+        f"requests; float32, request 0, every position: worst max|d| {float(per_pos.max()):.3g} "
+        f"(position {int(per_pos.argmax())}) of max|logits| {scale:.4g} (limit {LOGITS_TOL} x)")
+    for p in prefills:
+        log(f"  lm_forward prefill {p['batch']} x {p['seq']} ({p['attention']} attention, window "
+            f"{g.window}): {p['ms']:.1f} ms (float32 product bound {p['bound_ms']:.1f} ms)")
+    log(f"  RG-LRU scan alone at {b} x {s} x {g.lru_width}: {scan_ms:.3f} ms, x {rec_layers} "
+        f"recurrent layers = {scan_share:.1%} of the {b} x {s} prefill; peak {peak_gb:.2f} GB")
+    del params
+    return {"params": n_params, "weight_gb": weight_bytes / 1e9, "serve_ms": serve_ms,
+            "warm_ms": warm_ms, "decode_ms_per_step": decode_ms,
+            "decode_device_ms_per_step": step_ms, "decode_bound_ms": decode_bound_ms,
+            "prefills": prefills, "scan_ms": scan_ms, "scan_share_of_prefill": scan_share,
+            "decode_vs_prefill_rel_rms": last_rms, "float32_worst": float(per_pos.max()),
+            "peak_gb": peak_gb, "launches": launches}
+
+
+def audio_serving(torch, dev) -> dict:
+    """(b) whisper-medium at full width and depth: ``whisper_prefill`` of
+    AUDIO_BATCH x 1,500 frames (timed after an untimed first call),
+    AUDIO_PROMPT tokens warmed token by token
+    and AUDIO_NEW greedy ones against the cross cache it made, held against
+    the teacher-forced decoder; then ``generate`` as the reference runs it
+    (the zero cross cache of ``init_cache``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import whisper
+    from repro_torch.models.params import tree_bytes
+    from repro_torch.serve.decode import generate
+
+    cfg = get_config(AUDIO_ARCH)
+    api, params, n_params, weight_bytes = fresh_model(torch, dev, cfg, "b")
+    P, N, B, F = AUDIO_PROMPT, AUDIO_NEW, AUDIO_BATCH, cfg.encdec.num_frames
+    gen = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.randn((B, F, cfg.d_model), generator=gen, device=dev).to(cfg.adt())
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        empty = api.init_cache(cfg, B, P + N, device=dev)
+        whisper.whisper_prefill(params, frames, empty, cfg)  # the first call, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = whisper.whisper_prefill(params, frames, empty, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(cache["cross"]["k"].float()).all())
+              and bool(cache["cross"]["v"].any()), "cross K/V")
+        for i in range(P):
+            logits, cache = api.decode_step(params, cache, prompt[:, i:i + 1], i, cfg)
+        cur = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+        toks, decode_ms, step_ms = serve_timings(torch, api, params, cfg, cache, cur, P, N,
+                                                 P + N - 1)
+        launches = ops.launch_counts()
+        check(sum(launches.values()) == 0, f"a kernel ran on the audio path: {launches}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "decoded tokens")
+        forced = api.prefill(params, {"frames": frames, "tokens": prompt}, cfg)
+        last_rms = rel_rms(torch, logits[:, -1], forced[:, -1])
+        check(last_rms <= DECODE_VS_PREFILL_RMS,
+              f"decode against the prefill's cross cache vs the teacher-forced decoder: "
+              f"relative RMS {last_rms}")
+        del cache, forced, logits
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompt, N)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    gen_launches = ops.launch_counts()
+    check_generated(torch, out, prompt, N, cfg, gen_launches, cfg.name)
+    dec_bytes = tree_bytes({k: params[k] for k in ("embed", "dec_layers", "final_ln")})
+    decode_bound_ms = dec_bytes / HBM_BYTES_PER_S * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  whisper_prefill {B} x {F} frames (the encoder and {cfg.num_layers} layers' cross K/V): "
+        f"{prefill_ms:.1f} ms; decode {decode_ms:.2f} ms a step of {B} tokens on the host clock, "
+        f"{step_ms:.2f} ms on the card (a CUDA graph of the step; idle "
+        f"{1 - step_ms / decode_ms:.1%}); the decoder's weight-read bound "
+        f"{dec_bytes / 1e9:.3f} GB at 3.35 TB/s = {decode_bound_ms:.2f} ms; request 0 decodes "
+        f"{toks[0].tolist()}")
+    log(f"  decode against the prefill's cross cache vs the teacher-forced decoder at position "
+        f"{P - 1}: relative RMS {last_rms:.3g} (limit {DECODE_VS_PREFILL_RMS}); generate as the "
+        f"reference runs it (zero cross cache): {B} x ({P} + {N}) in {serve_ms:.1f} ms, "
+        f"launches {gen_launches}; peak {peak_gb:.2f} GB")
+    del params
+    return {"params": n_params, "weight_gb": weight_bytes / 1e9, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms, "decode_device_ms_per_step": step_ms,
+            "decoder_weight_gb": dec_bytes / 1e9, "decode_bound_ms": decode_bound_ms,
+            "generate_ms": serve_ms, "decode_vs_forced_rel_rms": last_rms, "peak_gb": peak_gb,
+            "launches": launches}
+
+
+def vlm_serving(torch, dev) -> dict:
+    """(c) pixtral-12b at full width and depth: a prefill of VLM_BATCH
+    requests of 256 patches and VLM_TEXT text tokens (timed after an untimed
+    first call); ``generate`` of VLM_NEW
+    greedy tokens on the text, then its prefill and decode timed apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.decode import generate
+
+    cfg = get_config(VLM_ARCH)
+    api, params, n_params, weight_bytes = fresh_model(torch, dev, cfg, "c")
+    B, T, N, Pch = VLM_BATCH, VLM_TEXT, VLM_NEW, cfg.vlm_patches
+    gen = torch.Generator(device=dev).manual_seed(3)
+    text = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev)
+    patches = torch.randn((B, Pch, cfg.d_model), generator=gen, device=dev).to(cfg.adt())
+    with torch.inference_mode():
+        api.prefill(params, {"tokens": text, "image_embeds": patches}, cfg)  # first, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = api.prefill(params, {"tokens": text, "image_embeds": patches}, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(logits.shape) == (B, Pch + T, cfg.vocab_size)
+              and bool(torch.isfinite(logits.float()).all()), "vlm prefill logits")
+        text_only = api.prefill(params, {"tokens": text}, cfg)
+        moved = rel_rms(torch, logits[:, Pch:], text_only)
+        check(moved > 0, "the patches left the text's logits as they were")
+        del logits, text_only
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, text, N)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    check_generated(torch, out, text, N, cfg, launches, cfg.name)
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, B, T + N, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.decode_step(params, cache, text, 0, cfg)
+        torch.cuda.synchronize()
+        text_prefill_ms = (time.perf_counter() - t0) * 1e3
+        cur = logits[:, -1].float().argmax(-1, keepdim=True).to(torch.int32)
+        toks, decode_ms, step_ms = serve_timings(torch, api, params, cfg, cache, cur, T, N,
+                                                 T + N - 1)
+        check(torch.equal(toks, out[:, T:]), "a second run gives other tokens")
+        del cache, logits
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = B * (Pch + T)
+    prefill_bound_ms = 2 * n_params * tokens / FP32_OPS_PER_S * 1e3
+    decode_bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  prefill {B} x ({Pch} patches + {T} text): {prefill_ms:.1f} ms (float32 product bound "
+        f"{prefill_bound_ms:.1f} ms); the patches move the text's logits by relative RMS "
+        f"{moved:.3g}")
+    log(f"  generate {B} x ({T} text + {N} new) greedy: {serve_ms:.1f} ms; launches {launches}; "
+        f"the text's chunked prefill {text_prefill_ms:.1f} ms; decode {decode_ms:.2f} ms a step "
+        f"of {B} tokens on the host clock, {step_ms:.2f} ms on the card (a CUDA graph of the "
+        f"step; idle {1 - step_ms / decode_ms:.1%}); weight-read bound {weight_bytes / 1e9:.2f} "
+        f"GB at 3.35 TB/s = {decode_bound_ms:.2f} ms; peak {peak_gb:.2f} GB")
+    del params
+    return {"params": n_params, "weight_gb": weight_bytes / 1e9, "prefill_ms": prefill_ms,
+            "prefill_bound_ms": prefill_bound_ms, "generate_ms": serve_ms,
+            "text_prefill_ms": text_prefill_ms, "decode_ms_per_step": decode_ms,
+            "decode_device_ms_per_step": step_ms, "decode_bound_ms": decode_bound_ms,
+            "peak_gb": peak_gb, "launches": launches}
+
+
+def train_losses(path: str) -> list[dict]:
+    """A ``launch/train`` metrics file's lines."""
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def killed_and_resumed(train, base: list, d: str, label: str) -> tuple[list, list]:
+    """``launch/train`` with ``base`` arguments, a checkpoint at step 0 and
+    ``--fault-step 2``; then resumed from that checkpoint and stopped by
+    ``--fault-step 3`` before it checkpoints again → (the killed run's
+    metrics, the resumed run's)."""
+    import os
+    import threading
+
+    ck = ["--ckpt-dir", f"{d}/ckpt", "--ckpt-every", "100"]
+    for fault, steps, name in ((2, 3, "killed"), (3, 4, "resumed")):
+        try:
+            captured(train.main, base + ck + ["--steps", str(steps), "--fault-step", str(fault),
+                                             "--metrics", f"{d}/{name}.jsonl"])
+        except RuntimeError as e:  # the injected fault, and nothing else
+            if f"injected fault at step {fault}" not in str(e):
+                raise
+        else:
+            check(False, f"{label}: the injected fault did not fire")
+        for t in threading.enumerate():  # the step-0 checkpoint written in full
+            if t.name.startswith("ckpt-write-"):
+                t.join()
+        if name == "killed":
+            saved = sorted(os.listdir(f"{d}/ckpt"))
+            check(saved == ["ckpt_00000000"], f"{label}: checkpoints {saved}")
+    return train_losses(f"{d}/killed.jsonl"), train_losses(f"{d}/resumed.jsonl")
+
+
+def zoo_train_main(device: str = "cuda") -> int:
+    """In a process of its own, under ``torch.use_deterministic_algorithms``
+    (with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``): each of ZOO_TRAIN trained
+    through ``launch/train`` for 3 steps, twice, every loss held bit for bit
+    between the two runs and the first against the model's own loss of the
+    same weights and batch; then each family's smoke config trained 3 steps,
+    killed after a checkpoint at step 0 and resumed from it, every loss bit
+    for bit.  The full-width runs write no checkpoint: one of
+    ``recurrentgemma-2b`` is 32.2 GB, of ``pixtral-12b`` at 6 layers 35.7 GB,
+    and a run that writes them beside phase [9]'s 20.7 GB checkpoints needs
+    more than 45 GiB of disk writes; ``tools/zoo_resume.py`` resumes each at
+    full width on its own.  Prints one JSON line."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import get_api
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.train.train_step import batch_to_device
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    full_config = train.get_config
+    out = {}
+    for arch, (layers, batch, seq) in ZOO_TRAIN.items():
+        cfg = full_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        n = count_params(get_api(cfg).decls(cfg))
+        log(f"[11d] {cfg.name}" + (f" (reduced: num_layers {full_config(arch).num_layers}→"
+                                   f"{layers})" if layers else "")
+            + f", {n:,} parameters, trained through launch/train twice: batch {batch} x seq "
+            f"{seq}, 3 steps, AdamW, float32 weights and moments")
+        base = ["--arch", arch, "--steps", "3", "--batch", str(batch), "--seq", str(seq),
+                "--seed", "0", "--device", device]
+        runs = []
+        train.get_config = lambda a, cfg=cfg: cfg
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                for run in range(2):
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    ops.reset_launch_counts()
+                    rc, _ = captured(train.main, base + ["--metrics", f"{d}/{run}.jsonl"])
+                    check(rc == 0, f"{arch}: launch/train returned {rc}")
+                    runs.append((train_losses(f"{d}/{run}.jsonl"), ops.launch_counts(),
+                                 torch.cuda.max_memory_allocated() / 1e9))
+        finally:
+            train.get_config = full_config
+        (plain, launches, peak_gb), (again, _, _) = runs
+        losses = [m["loss"] for m in plain]
+        check(len(losses) == 3 and all(math.isfinite(x) for x in losses), f"{arch}: {losses}")
+        check([m["loss"] for m in again] == losses,
+              f"{arch}: a second run's losses {[m['loss'] for m in again]}, not {losses}")
+        check(launches["ordered_rows_add"] == 3 and sum(launches.values()) == 3,
+              f"{arch}: launches {launches}, not one ordered_rows_add a step")
+        api = get_api(cfg)
+        with torch.no_grad():
+            params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
+                                 torch.float32, dev)
+            data = batch_to_device(SyntheticLM(cfg, batch, seq, seed=0)(0), cfg, dev)
+            start = float(api.loss(params, data, cfg)[0])
+        del params, data
+        check(abs(losses[0] - start) <= START_RTOL * abs(start),
+              f"{arch}: first loss {losses[0]}, the model's own {start}")
+        step_ms = statistics.median(m["step_ms"] for m in plain[1:])
+        log(f"  losses {losses}, the second run's bit for bit (the first as the model computes "
+            f"it apart: {start:.6f}); step {step_ms:.1f} ms (median of steps 1-2), peak "
+            f"{peak_gb:.2f} GB allocated; launches {launches['ordered_rows_add']} "
+            "ordered_rows_add")
+
+        # the smoke config killed after a checkpoint and resumed
+        smoke = ["--arch", arch, "--smoke", "--steps", "3", "--batch", "2", "--seq", "32",
+                 "--seed", "0", "--device", device]
+        with tempfile.TemporaryDirectory() as d:
+            rc, _ = captured(train.main, smoke + ["--metrics", f"{d}/plain.jsonl"])
+            check(rc == 0, f"{arch} smoke: launch/train returned {rc}")
+            smoke_losses = [m["loss"] for m in train_losses(f"{d}/plain.jsonl")]
+            killed, resumed = killed_and_resumed(train, smoke, d, f"{arch} smoke")
+        check([m["step"] for m in killed] == [0, 1] and [m["step"] for m in resumed] == [1, 2],
+              f"{arch} smoke: killed steps {killed}, resumed steps {resumed}")
+        for m in killed + resumed:
+            check(m["loss"] == smoke_losses[m["step"]], f"{arch} smoke step {m['step']}: loss "
+                  f"{m['loss']} against {smoke_losses[m['step']]} uninterrupted")
+        log(f"  {train.get_smoke(arch).name}: checkpoint at step 0, killed at step 2, resumed: "
+            f"steps 0-2 repeat the uninterrupted losses {smoke_losses} bit for bit")
+        out[arch] = {"layers": cfg.num_layers, "params": n, "batch": [batch, seq],
+                     "losses": losses, "first_loss_apart": start, "step_ms": step_ms,
+                     "step_ms_all": [m["step_ms"] for m in plain], "peak_gb": peak_gb,
+                     "launches": launches["ordered_rows_add"], "smoke_losses": smoke_losses}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def zoo_training(torch) -> dict:
+    """(d) ``zoo_train_main`` in a subprocess, its lines echoed."""
+    import os
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                           "sys.exit(chip_smoke.zoo_train_main())"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    check(proc.returncode == 0, f"the phase [11] training failed (rc {proc.returncode}):\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    log(f"  under torch.use_deterministic_algorithms(True), CUBLAS_WORKSPACE_CONFIG=:4096:8, in "
+        f"a process of its own: no op raised ({time.perf_counter() - t0:.1f} s)")
+    return json.loads(lines[-1])
+
+
+def zoo_card_against_cpu(torch, np, dev) -> dict:
+    """(e) each smoke config's prefill logits and loss on the card against
+    the CPU, float32, the same weights and SyntheticLM batch."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import get_api
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.train.train_step import batch_to_device
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in (HYBRID_ARCH, AUDIO_ARCH, VLM_ARCH):
+        cfg = get_smoke(arch)
+        api = get_api(cfg)
+        params = init_params(torch.Generator().manual_seed(0), api.decls(cfg), torch.float32, cpu)
+        batch = SyntheticLM(cfg, 2, 32, seed=0)(0)
+        runs = []
+        with torch.no_grad():
+            for where in (dev, cpu):
+                p = tree_map(lambda a: a.to(where, copy=True), params)
+                b = batch_to_device(batch, cfg, where)
+                runs.append((api.prefill(p, b, cfg).cpu(), float(api.loss(p, b, cfg)[0])))
+        (lg, sg), (lc, sc) = runs
+        diff = (lg - lc).abs()
+        worst = float((diff - ZOO_CARD_CPU_TOL * lc.abs()).max())
+        check(worst <= ZOO_CARD_CPU_TOL and abs(sg - sc) <= ZOO_CARD_CPU_TOL * abs(sc),
+              f"{cfg.name}: card logits off by {worst} past rtol; loss {sg} vs CPU {sc}")
+        log(f"[11e] {cfg.name}, float32, card vs CPU: max|d logits| {float(diff.max()):.3g} of "
+            f"max|logits| {float(lc.abs().max()):.4g}; loss {sg:.7f} / {sc:.7f} (rtol and atol "
+            f"{ZOO_CARD_CPU_TOL})")
+        out[cfg.name] = {"max_abs_logits_diff": float(diff.max()), "loss_card": sg,
+                         "loss_cpu": sc}
+    return out
+
+
+def zoo_paths(torch, np, dev, kernels: list) -> None:
+    """Phase [11]: the hybrid, audio and VLM families served at full width and
+    depth, trained deterministically (the smoke configs also resumed), card
+    against CPU, and ``ordered_rows_add`` at their embedding gradients → the
+    kernel's entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    summary = {"hybrid": hybrid_serving(torch, dev)}
+    summary["audio"] = audio_serving(torch, dev)
+    summary["vlm"] = vlm_serving(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["train"] = zoo_training(torch)
+    summary["card_vs_cpu"] = zoo_card_against_cpu(torch, np, dev)
+
+    # the kernel at the three embedding gradients, the training runs' tokens
+    latency = add_latency_ns(torch)
+    g = torch.Generator(device=dev).manual_seed(12)
+    calls = []
+    for arch, (_, batch, seq) in ZOO_TRAIN.items():
+        cfg = get_config(arch)
+        toks = torch.from_numpy(SyntheticLM(cfg, batch, seq, seed=0)(0)["tokens"]).to(dev)
+        calls.append(rows_call(
+            torch, ops, f"the {arch} embedding gradient ({batch} x {toks.shape[1]} tokens)",
+            torch.zeros((cfg.vocab_size, cfg.d_model), device=dev), toks.reshape(-1),
+            torch.randn((toks.numel(), cfg.d_model), generator=g, device=dev), latency))
+        gc.collect()
+        torch.cuda.empty_cache()
+    entry = next(e for e in kernels if e["name"] == "ordered_rows_add")
+    by_path = {f"{a} training, 3 steps (phase [11], the first run)": r["launches"]
+               for a, r in summary["train"].items()}
+    entry["launches"] += sum(by_path.values())
+    entry["launches_by_path"].update(by_path)
+    entry["calls"] += calls
+    entry["path"] += ", the training runs of phase [11]"
+    summary["ordered_rows_add"] = calls
+    log(f"[11] {time.perf_counter() - t0:.1f} s; " + json.dumps(summary, default=str))
+
+
 def run(torch, np) -> dict:
     from repro_torch.kernels import build
 
@@ -3130,6 +3702,9 @@ def run(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     moe_paths(torch, np, dev, kernels, dense["train"]["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_paths(torch, np, dev, kernels)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,11 @@ state, so resume after a restart is exact by construction (the train loop
 continues from the restored step), and any shard can be regenerated on any
 host after an elastic re-shard.  Both pipelines draw with numpy's Philox
 from the reference's counters, so their batches are the reference's bit
-for bit.  They return numpy arrays; the trainer moves them to its device.
+for bit.  They return numpy arrays; the trainer moves them to its device
+(``train.train_step.batch_to_device``).  The float draws (audio ``frames``,
+vlm ``image_embeds``) stay float32 here: the reference rounds them to
+``cfg.adt()`` with ``ml_dtypes``, the trainer on the device, both to
+nearest even, so the batch the model sees is the reference's bit for bit.
 
 * SyntheticLM: a Philox counter-based token stream (``counter = step ·
   65536 + shard``; benchmarks, smoke runs, tests; no I/O).
@@ -20,7 +24,6 @@ import dataclasses
 import numpy as np
 
 from ..models import ModelConfig
-from ..models.config import FAMILY_ITEMS, not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,15 +34,26 @@ class SyntheticLM:
     seed: int = 0
 
     def __call__(self, step: int, shard: int = 0, num_shards: int = 1) -> dict:
-        if self.cfg.family in ("audio", "vlm") or self.cfg.vlm_patches:
-            family = "vlm" if self.cfg.vlm_patches else self.cfg.family
-            raise not_ported(f"{self.cfg.name}'s synthetic inputs", FAMILY_ITEMS[family])
         b = self.batch // num_shards
         rng = np.random.Generator(
             np.random.Philox(key=self.seed, counter=step * 65536 + shard)
         )
-        toks = rng.integers(0, self.cfg.vocab_size, (b, self.seq), dtype=np.int32)
-        return {"tokens": toks, "labels": toks.copy()}
+        if self.cfg.family == "audio":
+            return {
+                "frames": rng.standard_normal(
+                    (b, self.cfg.encdec.num_frames, self.cfg.d_model), dtype=np.float32),
+                "tokens": rng.integers(0, self.cfg.vocab_size, (b, self.seq), dtype=np.int32),
+                "labels": rng.integers(0, self.cfg.vocab_size, (b, self.seq), dtype=np.int32),
+            }
+        toks = rng.integers(0, self.cfg.vocab_size, (b, self._text_len()), dtype=np.int32)
+        out = {"tokens": toks, "labels": toks.copy()}
+        if self.cfg.vlm_patches:
+            out["image_embeds"] = rng.standard_normal(
+                (b, self.cfg.vlm_patches, self.cfg.d_model), dtype=np.float32)
+        return out
+
+    def _text_len(self) -> int:
+        return max(self.seq - self.cfg.vlm_patches, 8) if self.cfg.vlm_patches else self.seq
 
 
 @dataclasses.dataclass(frozen=True)

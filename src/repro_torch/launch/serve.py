@@ -5,7 +5,8 @@
 
 Weights are a random init from ``--seed`` (float32, as the reference
 initialises them); ``--smoke`` takes the arch's small config, and
-``--device cpu`` runs on the CPU.  Prints the reference's ``[serve]`` lines.
+``--device cpu`` runs on the CPU.  Prints the reference's ``[serve]`` lines
+(no prefill line for ``whisper-medium``, whose prefill needs frames).
 """
 from __future__ import annotations
 
@@ -48,19 +49,20 @@ def main(argv=None) -> int:
                            generator=torch.Generator(device=dev).manual_seed(1), device=dev)
 
     prefill, _ = make_serve_steps(cfg)
-    t0 = time.time()
-    with torch.inference_mode():
-        logits = prefill(params, {"tokens": prompt})
-    _sync(dev)
-    # the prefill's last-position logits are the first generated token's
-    # distribution: report it instead of discarding the pass
-    nxt = torch.argmax(logits[:, -1, :].float(), dim=-1)
-    print(
-        f"[serve] prefill {args.batch}x{args.prompt_len}: "
-        f"{time.time()-t0:.2f}s logits {tuple(logits.shape)} "
-        f"greedy next ids {nxt.tolist()}",
-        flush=True,
-    )
+    if cfg.family != "audio":  # audio's prefill needs frames, not only tokens
+        t0 = time.time()
+        with torch.inference_mode():
+            logits = prefill(params, {"tokens": prompt})
+        _sync(dev)
+        # the prefill's last-position logits are the first generated token's
+        # distribution: report it instead of discarding the pass
+        nxt = torch.argmax(logits[:, -1, :].float(), dim=-1)
+        print(
+            f"[serve] prefill {args.batch}x{args.prompt_len}: "
+            f"{time.time()-t0:.2f}s logits {tuple(logits.shape)} "
+            f"greedy next ids {nxt.tolist()}",
+            flush=True,
+        )
 
     t0 = time.time()
     out = generate(params, cfg, prompt, max_new=args.new, temperature=args.temperature,

@@ -34,7 +34,7 @@ from ..models import get_api
 from ..models.config import SHARDING_ITEM, not_ported
 from ..models.params import init_params
 from ..train.optimizer import AdamW
-from ..train.train_step import init_train_state, make_train_step
+from ..train.train_step import batch_to_device, init_train_state, make_train_step
 
 
 def build_mesh(spec: str | None, device: torch.device):
@@ -97,7 +97,7 @@ def main(argv=None) -> int:
             if step == args.fault_step:
                 raise RuntimeError(f"injected fault at step {step}")
             t_step = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe(step).items()}
+            batch = batch_to_device(pipe(step), cfg, dev)
             params, state, metrics = step_fn(params, state, batch)
             loss = float(metrics["loss"])
             step_ms = (time.perf_counter() - t_step) * 1e3

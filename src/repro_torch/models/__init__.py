@@ -1,8 +1,8 @@
 """Model zoo of the port (``repro.models``' counterpart): configuration,
 parameter declarations, shared layers, attention (GQA and MLA), the MoE
-block, and the dense (GQA transformer), moe (deepseek-v3, kimi-k2) and ssm
-(RWKV-6) families.  The other families come with the
-ROADMAP queue 1 items that :data:`.config.FAMILY_ITEMS` names."""
+block, and every family of the reference: dense (GQA transformer), vlm
+(pixtral's backbone), moe (deepseek-v3, kimi-k2), ssm (RWKV-6), hybrid
+(recurrentgemma, ``griffin.py``) and audio (whisper, ``whisper.py``)."""
 from .config import (
     EncDecCfg,
     GriffinCfg,

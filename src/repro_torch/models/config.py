@@ -19,12 +19,7 @@ import torch
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
 
-# The ROADMAP queue 1 item that ports each family the port does not run yet.
-FAMILY_ITEMS = {
-    "hybrid": "Model zoo: the hybrid family",
-    "audio": "Model zoo: audio",
-    "vlm": "Model zoo: VLM",
-}
+# The ROADMAP queue 1 item that ports training and serving on a mesh.
 SHARDING_ITEM = "Sharding"
 
 

@@ -1,9 +1,8 @@
 """Uniform per-family model API (the port of ``repro.models.registry``).
 
 Training and serving talk to a :class:`ModelAPI` and never dispatch on
-family again.  The ``dense`` and ``ssm`` families have one; the others
-raise ``NotImplementedError`` naming the ROADMAP queue 1 item that ports
-each.
+family again: the decoder-only families share one, the ``audio`` family
+(whisper) has its own.
 """
 from __future__ import annotations
 
@@ -14,7 +13,8 @@ import torch
 
 from ..core.types import as_device
 from . import transformer as tf
-from .config import FAMILY_ITEMS, ModelConfig, not_ported
+from . import whisper as wh
+from .config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,8 +28,14 @@ class ModelAPI:
 
 
 def _lm_prefill(params, batch, cfg: ModelConfig):
-    logits, _, _ = tf.lm_forward(params, batch["tokens"], cfg)
+    logits, _, _ = tf.lm_forward(params, batch["tokens"], cfg,
+                                 image_embeds=batch.get("image_embeds"))
     return logits
+
+
+def _whisper_prefill(params, batch, cfg: ModelConfig):
+    enc = wh.encode(params, batch["frames"], cfg)
+    return wh.decode_train(params, batch["tokens"], enc, cfg)
 
 
 _LM_API = ModelAPI(
@@ -41,22 +47,42 @@ _LM_API = ModelAPI(
 )
 
 
+_WHISPER_API = ModelAPI(
+    decls=wh.whisper_decls,
+    loss=wh.whisper_loss,
+    prefill=_whisper_prefill,
+    init_cache=wh.whisper_init_cache,
+    decode_step=wh.whisper_decode_step,
+)
+
+
 def get_api(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family == "audio":
-        raise not_ported(f"the audio family ({cfg.name})", FAMILY_ITEMS["audio"])
-    return _LM_API
+    return _WHISPER_API if cfg.family == "audio" else _LM_API
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int,
                generator: torch.Generator | None = None,
                device: str | torch.device = "cuda") -> dict:
-    """Synthetic token batch for this family (smoke runs and tests)."""
+    """Synthetic batch with the reference's structure for this family (smoke
+    runs and tests): tokens and labels; for ``audio`` also ``frames``
+    (B, num_frames, D), for a config with ``vlm_patches`` P also
+    ``image_embeds`` (B, P, D) and the text cut to ``max(seq - P, 8)``.
+    Floats are in ``cfg.adt()``; every draw comes from ``generator``, in the
+    order the reference splits its keys."""
     dev = as_device(device)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
-    if cfg.family in ("audio", "vlm") or cfg.vlm_patches:
-        family = "vlm" if cfg.vlm_patches else cfg.family
-        raise not_ported(f"{cfg.name}'s inputs", FAMILY_ITEMS[family])
-    return {
-        "tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev),
-        "labels": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev),
-    }
+
+    def tokens(n):
+        return torch.randint(0, cfg.vocab_size, (batch, n), generator=gen, device=dev)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(cfg.adt())
+
+    if cfg.family == "audio":
+        frames = normal(batch, cfg.encdec.num_frames, cfg.d_model)
+        return {"frames": frames, "tokens": tokens(seq), "labels": tokens(seq)}
+    text = max(seq - cfg.vlm_patches, 8) if cfg.vlm_patches else seq
+    b = {"tokens": tokens(text), "labels": tokens(text)}
+    if cfg.vlm_patches:
+        b["image_embeds"] = normal(batch, cfg.vlm_patches, cfg.d_model)
+    return b

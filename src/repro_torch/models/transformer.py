@@ -1,18 +1,21 @@
 """Decoder-only LM (the port of ``repro.models.transformer``): the ``dense``
-family (GQA transformers: qwen3, minitron, qwen2, qwen1.5), the ``moe``
-family (deepseek-v3 with MLA and multi-token prediction, kimi-k2 with GQA)
-and the ``ssm`` family (RWKV-6).
+family (GQA transformers: qwen3, minitron, qwen2, qwen1.5), the ``vlm``
+family (pixtral: the dense backbone with patch embeddings in front of the
+text), the ``moe`` family (deepseek-v3 with MLA and multi-token prediction,
+kimi-k2 with GQA), the ``ssm`` family (RWKV-6) and the ``hybrid`` family
+(recurrentgemma: RG-LRU and local attention, ``models/griffin.py``).  The
+``audio`` family has its own API (``models/whisper.py``).
 
 Parameters and the decode cache keep the reference's trees: per-layer
 leaves stacked on a leading layer axis (``layers``, and for ``moe`` the
-leading dense ``dense_layers``), weights ``(in, out)``, activations
-``(B, S, D)``.  A Python loop over the layers stands in for ``lax.scan``;
-the stacked leaves are unbound once a call, so autograd stacks each leaf's
-layer gradients once.  The ``hybrid``, ``vlm`` and ``audio`` families raise
-``NotImplementedError`` naming the ROADMAP queue 1 item that ports each.
+leading dense ``dense_layers``; for ``hybrid`` the repeating ``units`` and
+the ``tail`` list of the layers left over), weights ``(in, out)``,
+activations ``(B, S, D)``.  A Python loop over the layers stands in for
+``lax.scan``; the stacked leaves are unbound once a call, so autograd
+stacks each leaf's layer gradients once.
 
   lm_decls(cfg)                             → ParamDecl tree
-  lm_forward(params, tokens, cfg)           → (logits, aux, hidden)
+  lm_forward(params, tokens, cfg, image_embeds=None) → (logits, aux, hidden)
   lm_loss(params, batch, cfg)               → (scalar, metrics)
   init_cache(cfg, batch, max_seq)           → decode cache
   decode_step(params, cache, tok, idx, cfg) → (logits, new cache)
@@ -27,7 +30,8 @@ import torch.utils.checkpoint as ckpt
 
 from ..core.types import as_device
 from .attention import attention, attn_decls
-from .config import FAMILY_ITEMS, ModelConfig, not_ported
+from .config import ModelConfig
+from .griffin import griffin_layer, griffin_layer_decls
 from .layers import (embed_decls, embed_lookup, glu, glu_decls, lm_logits, matmul, rmsnorm,
                      softmax_xent)
 from .mla import mla_attention, mla_decls
@@ -35,12 +39,13 @@ from .moe import moe_block, moe_decls
 from .params import ParamDecl, map_decls
 from .rwkv import rwkv_block, rwkv_block_decls, rwkv_init_state
 
-_PORTED_FAMILIES = ("dense", "moe", "ssm")
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _PORTED_FAMILIES:
-        raise not_ported(f"the {cfg.family!r} family ({cfg.name})", FAMILY_ITEMS[cfg.family])
+        raise ValueError(f"the {cfg.family!r} family ({cfg.name}) has its own model API: "
+                         "models.get_api(cfg)")
 
 
 def stack_decls(decls: Any, n: int) -> Any:
@@ -91,6 +96,12 @@ def lm_decls(cfg: ModelConfig) -> dict:
         )
     if cfg.family == "ssm":
         decls["layers"] = stack_decls(rwkv_block_decls(cfg), cfg.num_layers)
+    elif cfg.family == "hybrid":
+        pat = cfg.griffin.pattern
+        n_units, n_tail = _hybrid_units(cfg)
+        unit = {f"b{i}_{k}": griffin_layer_decls(cfg, k) for i, k in enumerate(pat)}
+        decls["units"] = stack_decls(unit, n_units)
+        decls["tail"] = [griffin_layer_decls(cfg, pat[i]) for i in range(n_tail)]
     elif cfg.family == "moe":
         n_dense = _dense_layers(cfg)
         if n_dense:
@@ -101,6 +112,12 @@ def lm_decls(cfg: ModelConfig) -> dict:
     else:
         decls["layers"] = stack_decls(_attn_block_decls(cfg, cfg.d_ff), cfg.num_layers)
     return decls
+
+
+def _hybrid_units(cfg: ModelConfig) -> tuple[int, int]:
+    """A ``hybrid`` config's repeats of its pattern and the layers left over."""
+    n_units = cfg.num_layers // len(cfg.griffin.pattern)
+    return n_units, cfg.num_layers - n_units * len(cfg.griffin.pattern)
 
 
 def layer(tree: Any, i: int) -> Any:
@@ -183,13 +200,17 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def lm_forward(
-    params: dict, tokens: torch.Tensor, cfg: ModelConfig
+    params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+    image_embeds: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Logits ``(B, S, vocab)`` in ``cfg.adt()``, the MoE aux loss summed
     over the routed layers (float32; 0 for the other families) and the
-    last hidden state."""
+    last hidden state.  A ``vlm`` config's ``image_embeds`` (B, P, D) go in
+    front of the token embeddings (S = P + the text's length)."""
     _check_family(cfg)
     x = embed_lookup(tokens, params["embed"]).to(cfg.adt())
+    if cfg.vlm_patches and image_embeds is not None:
+        x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
@@ -198,6 +219,21 @@ def lm_forward(
             x = body(x, lp)
         return _head(params, x, cfg), aux, x
     q_pos = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.family == "hybrid":
+        pat = cfg.griffin.pattern
+        n_units, _ = _hybrid_units(cfg)
+
+        def unit_body(c, lp):
+            for i, k in enumerate(pat):
+                c, _ = griffin_layer(c, lp[f"b{i}_{k}"], cfg, k, q_pos)
+            return c
+
+        body = _remat(unit_body, cfg)
+        for lp in unbind_layers(params["units"], n_units):
+            x = body(x, lp)
+        for i, lp in enumerate(params.get("tail", [])):
+            x, _ = griffin_layer(x, lp, cfg, pat[i], q_pos)
+        return _head(params, x, cfg), aux, x
     n_dense = _dense_layers(cfg)
     if n_dense:
         body_d = _remat(lambda c, lp: _attn_mlp_block(c, lp, cfg, q_pos)[0], cfg)
@@ -221,13 +257,17 @@ def lm_loss(
     """Next-token cross-entropy (position t predicts ``labels[t + 1]``) plus
     ``aux_coef`` times the MoE aux loss; metrics ``xent`` and ``moe_aux``.
     With ``mtp_depth > 0`` and ``"mtp"`` in the parameters, plus
-    ``mtp_coef`` times the multi-token-prediction loss (metric ``mtp``)."""
-    logits, aux, hidden = lm_forward(params, batch["tokens"], cfg)
-    loss = softmax_xent(logits[:, :-1, :], batch["labels"][:, 1:])
+    ``mtp_coef`` times the multi-token-prediction loss (metric ``mtp``).
+    With ``image_embeds`` in the batch, the patches' P positions predict
+    nothing."""
+    image_embeds = batch.get("image_embeds")
+    logits, aux, hidden = lm_forward(params, batch["tokens"], cfg, image_embeds=image_embeds)
+    P = cfg.vlm_patches if image_embeds is not None else 0
+    loss = softmax_xent(logits[:, P:][:, :-1, :], batch["labels"][:, 1:])
     total = loss + aux_coef * aux
     metrics = {"xent": loss, "moe_aux": aux}
     if cfg.mtp_depth > 0 and "mtp" in params:
-        mtp_loss = _mtp_loss(params, batch, cfg, hidden)
+        mtp_loss = _mtp_loss(params, batch, cfg, hidden[:, P:, :])
         total = total + mtp_coef * mtp_loss
         metrics["mtp"] = mtp_loss
     return total, metrics
@@ -262,7 +302,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``(layers, B, max_seq, rope_dim)``, under ``layers`` and, for a ``moe``
     config with leading dense layers, ``dense_layers``; for ``ssm``, the
     token-shift carries in ``cfg.adt()`` and the float32 WKV state, whose
-    size does not grow with ``max_seq``."""
+    size does not grow with ``max_seq``; for ``hybrid``, under ``units``
+    (stacked over the units) and ``tail`` (a list), each recurrent layer's
+    conv tail ``(B, conv_width - 1, lru_width)`` and float32 RG-LRU state
+    ``(B, lru_width)``, each attention layer's rolling window k/v of
+    ``(B, min(window, max_seq), KVH, hd)``."""
     _check_family(cfg)
     dev = as_device(device)
     if cfg.family == "ssm":
@@ -270,8 +314,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         return {key: a[None].repeat((cfg.num_layers,) + (1,) * a.ndim) for key, a in st.items()}
     dtype = dtype or cfg.adt()
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if cfg.family == "hybrid":
+        g = cfg.griffin
+        n_units, n_tail = _hybrid_units(cfg)
+        W = min(g.window, max_seq)
+
+        def state(kind, *lead):
+            if kind == "rec":
+                return {"conv": zeros(*lead, batch, g.conv_width - 1, g.lru_width),
+                        "lru": zeros(*lead, batch, g.lru_width, dt=torch.float32)}
+            return {key: zeros(*lead, batch, W, cfg.num_kv_heads, cfg.hd()) for key in ("k", "v")}
+
+        return {"units": {f"b{i}_{k}": state(k, n_units) for i, k in enumerate(g.pattern)},
+                "tail": [state(g.pattern[i]) for i in range(n_tail)]}
 
     def kv(n_layers):
         if cfg.mla is not None:
@@ -295,7 +353,9 @@ def decode_step(
     idx: int,  # position of tokens[:, 0]
     cfg: ModelConfig,
 ) -> tuple[torch.Tensor, dict]:
-    """Logits ``(B, S, vocab)`` for the S tokens and the advanced cache."""
+    """Logits ``(B, S, vocab)`` for the S tokens and the advanced cache.
+    A ``hybrid`` config's decode takes one token a step (S = 1), as the
+    reference's does; a ``vlm`` step is the dense one."""
     _check_family(cfg)
     x = embed_lookup(tokens, params["embed"]).to(cfg.adt())
     B, S = tokens.shape
@@ -307,6 +367,22 @@ def decode_step(
         return _head(params, x, cfg), _stack(states)
     # S tokens at consecutive positions from idx
     q_pos = (idx + torch.arange(S, device=x.device)).expand(B, S)
+    if cfg.family == "hybrid":  # one token at a time: the rolling window
+        pat = cfg.griffin.pattern
+        n_units, _ = _hybrid_units(cfg)
+        units = []
+        for u, lp in enumerate(unbind_layers(params["units"], n_units)):
+            lc = layer(cache["units"], u)
+            new_lc = {}
+            for i, k in enumerate(pat):
+                key = f"b{i}_{k}"
+                x, new_lc[key] = griffin_layer(x, lp[key], cfg, k, q_pos, state=lc[key], pos=idx)
+            units.append(new_lc)
+        tail = []
+        for i, lp in enumerate(params.get("tail", [])):
+            x, st = griffin_layer(x, lp, cfg, pat[i], q_pos, state=cache["tail"][i], pos=idx)
+            tail.append(st)
+        return _head(params, x, cfg), {"units": _stack(units), "tail": tail}
 
     def stack_step(x, key, n_layers, use_moe):
         states = []

@@ -8,8 +8,9 @@
 
 ``generate`` seeds the cache with one chunked prefill of the whole prompt
 at ``idx = 0`` and then decodes token by token, as the reference does for
-every family but the token-by-token ones (``hybrid``, ``audio``).  A Python
-loop stands in for ``lax.fori_loop``.
+every family but the token-by-token ones (``hybrid``, ``audio``), whose
+cache it warms one prompt token a step.  A Python loop stands in for
+``lax.fori_loop``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ from typing import Callable
 import torch
 
 from ..models import ModelConfig, get_api
-from ..models.config import FAMILY_ITEMS, not_ported
 
 
 def make_serve_steps(cfg: ModelConfig) -> tuple[Callable, Callable]:
@@ -68,10 +68,11 @@ def generate(
     ``idx = 0`` (for RWKV-6 one ``wkv6`` launch a layer; for the dense
     family the prompt's K/V written into the cache at once), and its last
     position's logits give the first new token; then ``max_new - 1`` steps
-    of one token each.
+    of one token each.  The token-by-token families instead feed prompt
+    token i at step i, and sample the first new token from step S0 - 1.  An
+    ``audio`` config decodes against the zero cross cache of its
+    ``init_cache``, as the reference's ``generate`` does.
     """
-    if cfg.family in _TOKEN_BY_TOKEN_FAMILIES:
-        raise not_ported(f"the {cfg.family!r} family's decode", FAMILY_ITEMS[cfg.family])
     if max_new < 1:
         raise ValueError(f"max_new must be at least 1, got {max_new}")
     api = get_api(cfg)
@@ -80,7 +81,11 @@ def generate(
     gen = torch.Generator(device=dev).manual_seed(seed)
     cache = api.init_cache(cfg, B, S0 + max_new, device=dev)
     with torch.inference_mode():
-        logits, cache = api.decode_step(params, cache, prompt, 0, cfg)
+        if cfg.family in _TOKEN_BY_TOKEN_FAMILIES:
+            for i in range(S0):
+                logits, cache = api.decode_step(params, cache, prompt[:, i:i + 1], i, cfg)
+        else:
+            logits, cache = api.decode_step(params, cache, prompt, 0, cfg)
         cur = sample_token(logits, gen, temperature)
         toks = [prompt.to(torch.int32), cur]
         for i in range(S0, S0 + max_new - 1):

@@ -73,6 +73,14 @@ def make_train_step(
     return train_step
 
 
+def batch_to_device(batch: dict, cfg: ModelConfig, device) -> dict:
+    """A pipeline's numpy batch as tensors on ``device``: float arrays
+    (audio ``frames``, vlm ``image_embeds``) cast to ``cfg.adt()``, integer
+    arrays (tokens, labels) as they are."""
+    return {k: (t.to(device=device, dtype=cfg.adt()) if t.is_floating_point() else t.to(device))
+            for k, t in ((k, torch.from_numpy(v)) for k, v in batch.items())}
+
+
 def init_train_state(cfg: ModelConfig, optimizer, params, compress: bool = False):
     state: dict[str, Any] = {"opt": optimizer.init(params)}
     if compress:

@@ -30,6 +30,7 @@ torch.set_num_threads(1)  # tiny model: more threads only contend with the other
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as jx_get_config  # noqa: E402
 from repro.configs import get_smoke as jx_get_smoke  # noqa: E402
 from repro.models import get_api as jx_get_api  # noqa: E402
 from repro.models import rwkv as jx_rwkv  # noqa: E402
@@ -237,12 +238,15 @@ def test_serve_cli_runs_on_the_cpu():
 
 
 def test_unported_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="Model zoo: VLM"):
-        get_config("pixtral-12b")
+    """An unknown arch is a KeyError; the hybrid, audio and VLM archs, ported
+    now, give the reference's configs."""
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    cfg = get_smoke("rwkv6-7b").replace(name="hybrid-like", family="hybrid")
-    with pytest.raises(NotImplementedError, match="Model zoo: the hybrid family"):
-        tf.lm_decls(cfg)
-    with pytest.raises(NotImplementedError, match="Model zoo: the hybrid family"):
-        get_api(get_smoke("rwkv6-7b")).loss(None, {"tokens": None}, cfg)
+    for arch in ("pixtral-12b", "recurrentgemma-2b", "whisper-medium"):
+        got, want = get_config(arch), jx_get_config(arch)
+        assert (got.name, got.family, got.num_layers, got.d_model, got.vocab_size) == (
+            want.name, want.family, want.num_layers, want.d_model, want.vocab_size)
+        assert got.vlm_patches == want.vlm_patches
+        assert (got.griffin is None) == (want.griffin is None)
+        assert (got.encdec is None) == (want.encdec is None)
+    assert get_api(get_smoke("whisper-medium")) is not get_api(get_smoke("rwkv6-7b"))

@@ -12,6 +12,7 @@ reference's ``tests/test_examples.py``, and must print its lines.
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -76,6 +77,30 @@ def test_train_cli_resumes_after_a_fault_with_the_same_losses(tmp_path):
 def test_train_cli_nan_guard_returns_3(tmp_path):
     rc, lines = _main(SMOKE + ["--steps", "4", "--lr", "inf"])
     assert rc == 3 and "NaN/Inf loss at step 1" in lines[-1]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-medium", "pixtral-12b"])
+def test_train_cli_trains_the_hybrid_audio_and_vlm_families(arch, tmp_path):
+    """Three steps of the smoke config; the first loss is the model's own
+    loss of seed 0's weights on step 0's batch (audio frames and image
+    patches cast to the activation dtype on the device)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import get_api
+    from repro_torch.models.params import init_params
+    from repro_torch.train.train_step import batch_to_device
+
+    rc, lines = _main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2", "--seq",
+                       "16", "--steps", "3", "--metrics", str(tmp_path / "m.jsonl")])
+    assert rc == 0 and lines[-1] == "[train] done"
+    losses = _losses(tmp_path / "m.jsonl")
+    assert sorted(losses) == [0, 1, 2] and all(map(math.isfinite, losses.values()))
+    cfg = get_smoke(arch)
+    api = get_api(cfg)
+    params = init_params(torch.Generator().manual_seed(0), api.decls(cfg), device="cpu")
+    batch = batch_to_device(SyntheticLM(cfg, 2, 16, seed=0)(0), cfg, "cpu")
+    with torch.no_grad():
+        assert losses[0] == float(api.loss(params, batch, cfg)[0])
 
 
 @pytest.mark.parametrize("extra", [["--grad-accum", "2"], ["--compress"]])

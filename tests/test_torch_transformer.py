@@ -365,19 +365,31 @@ def test_remat_gives_the_same_gradients(remat):
 
 
 def test_unported_families_name_their_item():
-    for arch, item in (("recurrentgemma-2b", "the hybrid family"), ("whisper-medium", "audio"),
-                       ("pixtral-12b", "VLM")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_config(arch)
+    """Every family is ported: the hybrid, audio and VLM archs give the
+    reference's configs, the audio family its own API, and the decoder-only
+    entry points refuse an audio config."""
+    for arch in ("recurrentgemma-2b", "whisper-medium", "pixtral-12b"):
+        for port, ref in ((get_config(arch), jx_get_config(arch)),
+                          (get_smoke(arch), jx_get_smoke(arch))):
+            for field in dataclasses.fields(ref):
+                want, got = getattr(ref, field.name), getattr(port, field.name)
+                if dataclasses.is_dataclass(want):
+                    want, got = dataclasses.asdict(want), dataclasses.asdict(got)
+                assert got == want, (arch, field.name)
     base = get_smoke("qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="the hybrid family"):
-        tf.lm_decls(base.replace(family="hybrid"))
-    with pytest.raises(NotImplementedError, match="audio"):
-        get_api(base.replace(family="audio"))
+    assert tf.lm_decls(base.replace(family="vlm")) == tf.lm_decls(base)
+    assert get_api(base.replace(family="audio")) is get_api(get_smoke("whisper-medium"))
+    with pytest.raises(ValueError, match="own model API"):
+        tf.lm_decls(base.replace(family="audio"))
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE)
+SERVE_ARCHS = ARCHS + MOE + ["recurrentgemma-2b", "whisper-medium", "pixtral-12b"]
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_serve_cli_serves_the_dense_family(arch):
+    """Every family but audio prints a prefill line; audio's prefill needs
+    frames, so it prints the generation's two lines only."""
     import contextlib
     import io
 
@@ -388,4 +400,8 @@ def test_serve_cli_serves_the_dense_family(arch):
         rc = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                          "--prompt-len", "8", "--new", "4"])
     lines = out.getvalue().splitlines()
-    assert rc == 0 and len(lines) == 3 and "prefill 2x8" in lines[0] and "8 tokens in" in lines[1]
+    assert rc == 0 and all(line.startswith("[serve]") for line in lines)
+    if get_smoke(arch).family == "audio":
+        assert len(lines) == 2 and "8 tokens in" in lines[0]
+    else:
+        assert len(lines) == 3 and "prefill 2x8" in lines[0] and "8 tokens in" in lines[1]
