@@ -86,7 +86,15 @@ cut to 6 layers) twice in a process of its own under
 embedding gradients through ``ordered_rows_add``, which is then held and
 timed at those three shapes, and their smoke configs killed after a
 checkpoint and resumed, every loss bit for bit; and each smoke config on
-the card against the CPU.
+the card against the CPU;
+and phase [12], sharding: ``launch/train --mesh 1x1`` (2 steps of
+``qwen3-1.7b`` at 4 x 512) and ``launch/serve --mesh 1x1`` (4 x (128 + 32)
+greedy), the plain path, their losses and every request's ids held to
+phase [9]'s bit for bit; then the ``qwen3-1.7b`` smoke train state saved on
+the card after step 1 and restored by ``elastic_restore`` onto a 2-rank
+gloo world on the CPU that the script spawns, as 1x2 and 2x1: every leaf
+bit for bit, the next step's loss held to the card's (rtol 1e-5), with the
+restore, gather and save walls.
 Each kernel is then held against its plain version and timed at its path's
 shapes on its path's inputs (for ``wkv6``, the tensors layer 0 and layer 31
 hand it in the served prefill).  Phase [4] also provisions the quickstart
@@ -2124,7 +2132,7 @@ def dense_serving(torch, dev) -> dict:
             "decode_ms_per_step": decode_ms, "decode_device_ms_per_step": step_ms,
             "decode_bound_ms": decode_bound_ms, "decode_tok_s": DENSE_BATCH / decode_ms * 1e3,
             "peak_gb": peak_gb, "chunked_vs_stepped_last": last, "logits_scale": scale,
-            "launches": launches}
+            "launches": launches, "ids": out[:, DENSE_PROMPT:].tolist()}
 
 
 def dense_training(torch, dev) -> dict:
@@ -3670,6 +3678,256 @@ def zoo_paths(torch, np, dev, kernels: list) -> None:
     log(f"[11] {time.perf_counter() - t0:.1f} s; " + json.dumps(summary, default=str))
 
 
+# ---------------------------------------------------------------------------
+# [12] sharding: the mesh entry points, and elastic restore across worlds
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 2
+ELASTIC_ARCH, ELASTIC_BATCH, ELASTIC_SEQ = "qwen3-1.7b", 4, 64
+ELASTIC_MESHES = ((1, 2), (2, 1))
+ELASTIC_LOSS_RTOL = 1e-5  # float32 smoke: the card's and the CPU's sums in other orders
+ELASTIC_TIMEOUT_S = 240
+
+ELASTIC_RANK = r"""
+import json, sys, time
+import numpy as np, torch
+torch.set_num_threads(2)
+import torch.distributed as dist
+rank, tmp, ckpt, arch, batch, seq = sys.argv[1:7]
+rank, batch, seq = int(rank), int(batch), int(seq)
+dist.init_process_group("gloo", init_method=f"file://{tmp}/store", world_size=2, rank=rank)
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from repro_torch.checkpoint.checkpoint import Checkpointer
+from repro_torch.checkpoint.elastic import elastic_restore
+from repro_torch.configs import get_smoke
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models import get_api
+from repro_torch.models.params import (init_params, shard_params, tree_leaves, tree_map,
+                                       validated_pspec_tree)
+from repro_torch.sharding import use_mesh
+from repro_torch.train.optimizer import AdamW
+from repro_torch.train.train_step import batch_to_device, init_train_state, make_train_step
+
+cfg = get_smoke(arch)
+api = get_api(cfg)
+opt = AdamW()  # launch/train's
+with np.load(f"{ckpt}/ckpt_00000001/arrays.npz") as data:
+    saved = [data[k] for k in sorted(data.files)]
+out = {}
+for shape in [tuple(s) for s in json.loads(sys.argv[7])]:
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(shape), mesh_dim_names=("data", "model"))
+    with use_mesh(mesh):
+        params = init_params(torch.Generator().manual_seed(1), api.decls(cfg), torch.float32,
+                             "cpu")
+        params = shard_params(params, mesh, validated_pspec_tree(api.decls(cfg), mesh))
+        target = {"params": params, "state": init_train_state(cfg, opt, params)}
+        dist.barrier()
+        t0 = time.perf_counter()
+        tree, manifest = elastic_restore(Checkpointer(ckpt), cfg, mesh, target)
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole = [(t.full_tensor() if isinstance(t, DTensor) else t).numpy().copy()
+                 for t in tree_leaves(tree)]
+        gather_s = time.perf_counter() - t0
+        same = len(whole) == len(saved) and all(
+            a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(whole, saved))
+        sharded = sum(isinstance(t, DTensor) and any(p.is_shard() for p in t.placements)
+                      for t in tree_leaves(tree["params"]))
+        t0 = time.perf_counter()
+        Checkpointer(f"{tmp}/resaved{shape[0]}x{shape[1]}").save(manifest["step"], tree)
+        save_s = time.perf_counter() - t0
+        step = manifest["step"] + 1
+        b = batch_to_device(SyntheticLM(cfg, batch, seq, seed=0)(step), cfg, "cpu")
+        _, _, m = make_train_step(cfg, opt)(tree["params"], tree["state"], b)
+        out["%dx%d" % shape] = {"bits_equal": same, "step": step, "loss": float(m["loss"]),
+                                "restore_s": restore_s, "gather_s": gather_s,
+                                "save_s": save_s, "sharded_leaves": sharded}
+if rank == 0:
+    print(json.dumps(out), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def mesh_entry_points(torch, dev, dense: dict) -> dict:
+    """[12a] ``launch/train --mesh 1x1`` (MESH_TRAIN_STEPS steps at TRAIN_BATCH x
+    TRAIN_SEQ) and ``launch/serve --mesh 1x1`` (DENSE_BATCH x (DENSE_PROMPT +
+    DENSE_NEW) greedy), ``qwen3-1.7b`` at full width and depth: the plain
+    path, so the losses and every request's ids equal phase [9]'s bit for
+    bit."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+
+    log(f"[12a] {DENSE_ARCH} through launch/train and launch/serve with --mesh 1x1")
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        rc, _ = captured(train.main, ["--arch", DENSE_ARCH, "--steps", str(MESH_TRAIN_STEPS),
+                                      "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                                      "--seed", "0", "--device", str(dev), "--mesh", "1x1",
+                                      "--metrics", f"{d}/m.jsonl"])
+        launches = ops.launch_counts()
+        check(rc == 0, f"launch/train --mesh 1x1 returned {rc}")
+        with open(f"{d}/m.jsonl") as f:
+            steps = [json.loads(line) for line in f]
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in steps]
+    check(losses == dense["train"]["losses"][:MESH_TRAIN_STEPS],
+          f"--mesh 1x1 losses {losses} against phase [9]'s {dense['train']['losses']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    generated = []
+    inner = serve.generate
+
+    def recording(*args, **kwargs):  # the CLI prints request 0 only: keep all four
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        generated.append((out, time.perf_counter() - t0))
+        return out
+
+    serve.generate = recording
+    try:
+        ops.reset_launch_counts()
+        rc, _ = captured(serve.main, ["--arch", DENSE_ARCH, "--batch", str(DENSE_BATCH),
+                                      "--prompt-len", str(DENSE_PROMPT), "--new", str(DENSE_NEW),
+                                      "--temperature", "0", "--seed", "0", "--device", str(dev),
+                                      "--mesh", "1x1"])
+        serve_launches = ops.launch_counts()
+    finally:
+        serve.generate = inner
+    check(rc == 0 and len(generated) == 1, f"launch/serve --mesh 1x1 returned {rc}")
+    out, gen_s = generated[0]
+    ids = out[:, DENSE_PROMPT:].tolist()
+    check(ids == dense["serve"]["ids"], f"--mesh 1x1 ids {ids} against phase [9]'s")
+    step_ms = steps[-1]["step_ms"]
+    log(f"  losses {losses} = phase [9]'s first {MESH_TRAIN_STEPS} bit for bit; step "
+        f"{[round(m['step_ms'], 1) for m in steps]} ms (the last {step_ms:.1f} ms; phase [9]'s "
+        f"median {dense['train']['step_ms']:.1f} ms), peak {train_peak:.2f} GB; generate "
+        f"{gen_s * 1e3:.1f} ms for {DENSE_BATCH} x ({DENSE_PROMPT} + {DENSE_NEW}) "
+        f"({gen_s * 1e3 / DENSE_NEW:.2f} ms a new token, the prefill included); every "
+        f"request's ids = phase [9]'s")
+    return {"losses": losses, "step_ms": [m["step_ms"] for m in steps], "peak_gb": train_peak,
+            "generate_ms": gen_s * 1e3, "ms_per_new_token": gen_s * 1e3 / DENSE_NEW,
+            "launches": launches, "serve_launches": serve_launches}
+
+
+def elastic_across_worlds(torch, np, dev) -> dict:
+    """[12b] the ``ELASTIC_ARCH`` smoke train state saved on the card after
+    step 1 (``launch/train --ckpt-every 1``), restored by ``elastic_restore``
+    onto a 2-rank gloo world on the CPU (spawned here) as 1×2 and 2×1: every
+    restored parameter and moment equals the checkpoint bit for bit, and the
+    next step's loss is the one-rank card run's (rtol ELASTIC_LOSS_RTOL).
+    Walls: the card's save and restore of the state, and in the world the
+    restore, the gather of the sharded tree and a sharded save."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    log(f"[12b] the {ELASTIC_ARCH} smoke train state: saved on the card after step 1, "
+        f"restored onto a 2-rank gloo world on the CPU as "
+        f"{', '.join('%dx%d' % m for m in ELASTIC_MESHES)}")
+    base = ["--arch", ELASTIC_ARCH, "--smoke", "--batch", str(ELASTIC_BATCH), "--seq",
+            str(ELASTIC_SEQ), "--seed", "0", "--device", str(dev)]
+    with tempfile.TemporaryDirectory() as d:
+        ops.reset_launch_counts()
+        rc, _ = captured(train.main, base + ["--steps", "3", "--metrics", f"{d}/three.jsonl"])
+        check(rc == 0, f"the card's 3-step run returned {rc}")
+        rc, _ = captured(train.main, base + ["--steps", "2", "--ckpt-dir", f"{d}/ck",
+                                             "--ckpt-every", "1", "--metrics", f"{d}/two.jsonl"])
+        check(rc == 0, f"the card's checkpointed run returned {rc}")
+        launches = ops.launch_counts()
+        card = [json.loads(line)["loss"] for line in open(f"{d}/three.jsonl")]
+        saved_run = [json.loads(line)["loss"] for line in open(f"{d}/two.jsonl")]
+        check(saved_run == card[:2], f"the checkpointed run's losses {saved_run} vs {card}")
+
+        # the card's own walls: the saved state restored onto the card, saved again
+        ck = Checkpointer(f"{d}/ck")
+        with np.load(f"{d}/ck/ckpt_00000001/arrays.npz") as data:
+            target = {k: torch.zeros(data[k].shape, dtype=torch.float32 if data[k].dtype.kind ==
+                                     "f" else torch.int32, device=dev) for k in data.files}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat, _ = ck.restore(1, target)
+        torch.cuda.synchronize()
+        card_restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Checkpointer(f"{d}/again").save(1, flat, block=True)
+        card_save_s = time.perf_counter() - t0
+        state_mb = sum(t.numel() * t.element_size() for t in flat.values()) / 1e6
+
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", ELASTIC_RANK, str(r), d, f"{d}/ck", ELASTIC_ARCH,
+             str(ELASTIC_BATCH), str(ELASTIC_SEQ), json.dumps(ELASTIC_MESHES)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=ELASTIC_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        world_s = time.perf_counter() - t0
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"elastic rank {r} exited {p.returncode}:\n{err[-3000:]}")
+        worlds = json.loads(outs[0][0].strip().splitlines()[-1])
+    for shape, w in worlds.items():
+        check(w["bits_equal"], f"{shape}: the restored state differs from the checkpoint")
+        check(w["sharded_leaves"] > 0 or shape == "2x1",
+              f"{shape}: no parameter was sharded")
+        check(w["step"] == 2 and abs(w["loss"] - card[2]) <= ELASTIC_LOSS_RTOL * abs(card[2]),
+              f"{shape}: step {w['step']} loss {w['loss']} against the card's {card[2]}")
+        log(f"  {shape}: every leaf bit for bit ({w['sharded_leaves']} parameters sharded); "
+            f"step 2 loss {w['loss']:.7f} (card {card[2]:.7f}, rel "
+            f"{abs(w['loss'] - card[2]) / abs(card[2]):.2e}); restore {w['restore_s'] * 1e3:.1f} "
+            f"ms, gather {w['gather_s'] * 1e3:.1f} ms, sharded save {w['save_s'] * 1e3:.1f} ms")
+    log(f"  card: losses {card}; the {state_mb:.2f} MB state restored onto the card in "
+        f"{card_restore_s * 1e3:.1f} ms, saved in {card_save_s * 1e3:.1f} ms; the CPU world "
+        f"took {world_s:.1f} s, its start included")
+    return {"card_losses": card, "state_mb": state_mb, "card_restore_ms": card_restore_s * 1e3,
+            "card_save_ms": card_save_s * 1e3, "world_s": world_s, "worlds": worlds,
+            "launches": launches}
+
+
+def sharding_paths(torch, np, dev, kernels: list, dense: dict) -> None:
+    """Phase [12]: the mesh entry points on one rank, bit for bit with phase
+    [9], and elastic restore from the card onto a 2-rank CPU world.  A
+    multi-rank world on the one card has no phase: NCCL refuses two ranks on
+    one device, and on gloo with CUDA tensors a DTensor redistribution
+    crashes both ranks (SIGSEGV) and a send/recv aborts one
+    (``tools/gloo_cuda_probe.py``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    summary = {"mesh_1x1": mesh_entry_points(torch, dev, dense)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["elastic"] = elastic_across_worlds(torch, np, dev)
+    entry = next(e for e in kernels if e["name"] == "ordered_rows_add")
+    by_path = {
+        f"{DENSE_ARCH} launch/train --mesh 1x1, {MESH_TRAIN_STEPS} steps (phase [12a])":
+        summary["mesh_1x1"]["launches"]["ordered_rows_add"],
+        f"{DENSE_ARCH} launch/serve --mesh 1x1 (phase [12a])":
+        summary["mesh_1x1"]["serve_launches"]["ordered_rows_add"],
+        f"{ELASTIC_ARCH} smoke training, 3 + 2 steps (phase [12b])":
+        summary["elastic"]["launches"]["ordered_rows_add"]}
+    entry["launches"] += sum(by_path.values())
+    entry["launches_by_path"].update(by_path)
+    entry["path"] += ", the mesh entry points and elastic runs of phase [12]"
+    log(f"[12] {time.perf_counter() - t0:.1f} s; " + json.dumps(summary, default=str))
+
+
 def run(torch, np) -> dict:
     from repro_torch.kernels import build
 
@@ -3705,6 +3963,9 @@ def run(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     zoo_paths(torch, np, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharding_paths(torch, np, dev, kernels, dense)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,16 +6,22 @@ The full stack in one script:
      (each clock round one ``bid_eval`` launch on the card);
   2. the job builds its mesh from the grant and trains, checkpointing;
   3. mid-run, a *second* auction epoch (congestion changed) re-provisions the
-     job to a different grant; the in-memory state is dropped (a node
-     failure) and the job restores from its checkpoint onto the new mesh
-     and keeps training.
+     job to a different grant; the job elastically re-shards from its
+     checkpoint onto the new mesh and keeps training;
+  4. the in-memory state is dropped first (a node failure), so that restore
+     is the supervisor-style one.
 
-Training runs on one rank: a grant whose mesh spans more than one device
-raises ``NotImplementedError`` (ROADMAP queue 1, 'Sharding').  The default
-is a CPU-sized model for a quick demo; ``--production`` switches to a
-~100M-parameter model × 300 steps.
+A mesh spans the ranks of the ``torch.distributed`` world (one rank without
+one; torchrun's world is joined here): the weights are DTensors laid out by
+``validated_pspec_tree``, checkpoints are gathered and written by rank 0 into
+a directory rank 0 picks, and ``checkpoint.elastic.elastic_restore`` places
+the state on the new mesh.  Rank 0 prints.  The default is a CPU-sized
+model for a quick demo; ``--production`` switches to a ~100M-parameter
+model × 300 steps.
 
     PYTHONPATH=src python examples/elastic_train_torch.py [--production] [--device cpu]
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+        examples/elastic_train_torch.py --device cpu
 """
 import argparse
 import tempfile
@@ -24,18 +30,23 @@ import time
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.checkpoint.checkpoint import Checkpointer
+from repro_torch.checkpoint.elastic import elastic_restore
 from repro_torch.configs import get_smoke
 from repro_torch.core import (
     ClockConfig, ResourcePool, clock_auction, operator_supply_bids,
     pack_bids, reserve_prices,
 )
-from repro_torch.core.provisioner import grants_from_allocation, grant_to_mesh
+from repro_torch.core.provisioner import (grants_from_allocation, grant_to_mesh,
+                                          init_world_from_env, lead_rank, world_size)
 from repro_torch.core.types import as_device
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import ModelConfig, get_api
-from repro_torch.models.config import SHARDING_ITEM, not_ported
-from repro_torch.models.params import count_params, init_params
+from repro_torch.models.params import (count_params, init_params, shard_params,
+                                       validated_pspec_tree)
+from repro_torch.sharding import use_mesh
 from repro_torch.train.optimizer import AdamW
 from repro_torch.train.train_step import init_train_state, make_train_step
 
@@ -46,7 +57,7 @@ MODEL_100M = ModelConfig(
 )
 
 
-def run_auction(util_east: float, job_chips: int, device: torch.device):
+def run_auction(util_east: float, job_chips: int, device: torch.device, say=print):
     """One provisioning epoch: returns the job's DeviceGrant."""
     pools = [
         ResourcePool("us-east", "tpu_chips", 10.0, util_east, supply=256),
@@ -67,16 +78,8 @@ def run_auction(util_east: float, job_chips: int, device: torch.device):
     if not grants:
         raise RuntimeError("the training job must win at reserve prices")
     g = grants[0]
-    print(f"[market] grant: {g.chips} chips in {g.cluster} @ ${g.unit_price:.2f}/chip")
+    say(f"[market] grant: {g.chips} chips in {g.cluster} @ ${g.unit_price:.2f}/chip")
     return g
-
-
-def job_mesh(grant, device: torch.device):
-    """The grant's mesh; the job trains unsharded on one rank."""
-    mesh = grant_to_mesh(grant, device=device)
-    if mesh.size() > 1:
-        raise not_ported(f"training on a {tuple(mesh.shape)} mesh", SHARDING_ITEM)
-    return mesh
 
 
 def main(argv=None) -> int:
@@ -90,16 +93,21 @@ def main(argv=None) -> int:
 
     dev = as_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products stay float32
+    init_world_from_env(dev)
+    lead = lead_rank()
+    say = print if lead else (lambda *a, **k: None)
     cfg = MODEL_100M if args.production else get_smoke("qwen3-1.7b")
     steps = args.steps or (300 if args.production else 40)
     batch = args.batch or (8 if args.production else 4)
     seq = args.seq or (256 if args.production else 64)
     api = get_api(cfg)
     n = count_params(api.decls(cfg))
-    print(f"[job] model {cfg.name}: {n/1e6:.1f}M params, {steps} steps, batch {batch} × seq {seq}")
+    say(f"[job] model {cfg.name}: {n/1e6:.1f}M params, {steps} steps, batch {batch} × seq {seq}")
 
-    ckdir = tempfile.mkdtemp(prefix="elastic_train_")
-    ck = Checkpointer(ckdir)
+    ckdir = [tempfile.mkdtemp(prefix="elastic_train_") if lead else None]
+    if world_size() > 1:  # one directory for every rank: rank 0's
+        dist.broadcast_object_list(ckdir, src=0)
+    ck = Checkpointer(ckdir[0])
     opt = AdamW(lr=1e-3)
     step_fn = make_train_step(cfg, opt)
     pipe = SyntheticLM(cfg, batch, seq, seed=0)
@@ -108,39 +116,44 @@ def main(argv=None) -> int:
         return {k: torch.from_numpy(v).to(dev) for k, v in pipe(step).items()}
 
     # ---- epoch 1: us-east congested → market sends the job to eu-west ------
-    grant = run_auction(util_east=0.93, job_chips=128, device=dev)
-    job_mesh(grant, dev)
+    grant = run_auction(util_east=0.93, job_chips=128, device=dev, say=say)
+    mesh = grant_to_mesh(grant, device=dev)
+    say(f"[job] mesh {tuple(mesh.shape)} over {world_size()} rank(s)")
     phase_1_end = steps // 2
-    params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
-                         torch.float32, dev)
-    state = init_train_state(cfg, opt, params)
-    t0 = time.time()
-    for step in range(phase_1_end):
-        params, state, m = step_fn(params, state, batch_at(step))
-        if step % 10 == 0:
-            print(f"[train/{grant.cluster}] step {step} loss {float(m['loss']):.4f}")
-        if step % 10 == 0:
-            ck.save(step, {"params": params, "state": state})
-    ck.save(phase_1_end - 1, {"params": params, "state": state}, block=True)
-    print(f"[train] phase 1 done in {time.time()-t0:.1f}s")
+    with use_mesh(mesh):
+        params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
+                             torch.float32, dev)
+        params = shard_params(params, mesh, validated_pspec_tree(api.decls(cfg), mesh))
+        state = init_train_state(cfg, opt, params)
+        t0 = time.time()
+        for step in range(phase_1_end):
+            params, state, m = step_fn(params, state, batch_at(step))
+            if step % 10 == 0:
+                say(f"[train/{grant.cluster}] step {step} loss {float(m['loss']):.4f}")
+            if step % 10 == 0:
+                ck.save(step, {"params": params, "state": state})
+        ck.save(phase_1_end - 1, {"params": params, "state": state}, block=True)
+        say(f"[train] phase 1 done in {time.time()-t0:.1f}s")
 
-    # ---- epoch 2: congestion flipped → re-provisioned; elastic restore -----
-    grant2 = run_auction(util_east=0.20, job_chips=64, device=dev)
-    job_mesh(grant2, dev)
-    # simulate loss of the in-memory state (node failure) → restore
-    restored, manifest = ck.restore_latest({"params": params, "state": state})
-    params, state = restored["params"], restored["state"]
-    start = manifest["step"] + 1
-    print(
-        f"[elastic] resumed step {start} on new grant "
-        f"({grant2.chips} chips in {grant2.cluster})"
-    )
-    for step in range(start, steps):
-        params, state, m = step_fn(params, state, batch_at(step))
-        if step % 10 == 0 or step == steps - 1:
-            print(f"[train/{grant2.cluster}] step {step} loss {float(m['loss']):.4f}")
-    ck.save(steps - 1, {"params": params, "state": state}, block=True)
-    print(f"[done] final loss {float(m['loss']):.4f}; checkpoints in {ckdir}")
+    # ---- epoch 2: congestion flipped → re-provisioned; elastic reshard -----
+    grant2 = run_auction(util_east=0.20, job_chips=64, device=dev, say=say)
+    mesh2 = grant_to_mesh(grant2, device=dev)
+    with use_mesh(mesh2):
+        # simulate loss of the in-memory state (node failure) → restore
+        restored, manifest = elastic_restore(ck, cfg, mesh2, {"params": params, "state": state})
+        params, state = restored["params"], restored["state"]
+        start = manifest["step"] + 1
+        say(
+            f"[elastic] resumed step {start} on new grant "
+            f"({grant2.chips} chips in {grant2.cluster})"
+        )
+        say(f"[job] mesh {tuple(mesh2.shape)} over {world_size()} rank(s)")
+        for step in range(start, steps):
+            params, state, m = step_fn(params, state, batch_at(step))
+            if step % 10 == 0 or step == steps - 1:
+                say(f"[train/{grant2.cluster}] step {step} loss {float(m['loss']):.4f}")
+        ck.save(steps - 1, {"params": params, "state": state}, block=True)
+    say(f"[done] final loss {float(m['loss']):.4f}; checkpoints in {ckdir[0]}")
     return 0
 
 

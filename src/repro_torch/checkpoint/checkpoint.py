@@ -17,6 +17,14 @@ the tree to the host at once and writes the files on a background thread;
 ``wait()`` (or the next ``save``) joins it.  ``restore`` puts each array on
 the target leaf's device in its dtype: a job restores onto whatever device
 its new grant gives it.
+
+Sharded trees (DTensor leaves, ``sharding.use_mesh``): ``save`` gathers
+each leaf (``full_tensor()``, a collective every rank joins), then rank 0
+writes, synchronously, and every rank waits at a barrier: two ranks
+writing one directory would race.  ``restore`` places each leaf as its
+``shardings`` entry (a ``sharding.NamedSharding``) says, or like its target
+leaf when that is a DTensor; each rank keeps its own slice of the array it
+read.  A checkpoint holds whole arrays, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -29,6 +37,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..kernels.ops import is_dtensor
 
 _SEP = "/"
 
@@ -58,6 +69,8 @@ def _rebuild(tree: Any, values: dict, prefix: str = "") -> Any:
 
 
 def _to_host(leaf: Any) -> np.ndarray:
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("Checkpointer: numpy has no bfloat16; save float32 leaves")
@@ -76,7 +89,9 @@ class Checkpointer:
     # -- write ----------------------------------------------------------------
     def save(self, step: int, tree, metadata: dict | None = None, block: bool = False):
         self.wait()
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        flat = _flatten(tree)
+        sharded = any(is_dtensor(v) for v in flat.values())
+        host = {k: _to_host(v) for k, v in flat.items()}
         manifest = {
             "step": int(step),
             "keys": sorted(host.keys()),
@@ -96,6 +111,11 @@ class Checkpointer:
                 shutil.rmtree(final)
             os.replace(tmp, final)
 
+        if sharded:  # one writer, the others wait for its files
+            if dist.get_rank() == 0:
+                write()
+            dist.barrier()
+            return
         self._thread = threading.Thread(target=write, name=f"ckpt-write-{step}", daemon=True)
         self._thread.start()
         if block:
@@ -112,24 +132,40 @@ class Checkpointer:
                                            for name in os.listdir(self.dir)) if m]
         return max(steps) if steps else None
 
-    def restore(self, step: int, target_tree):
+    def restore(self, step: int, target_tree, shardings=None):
         """``target_tree``'s structure with the saved values, each on its
-        target leaf's device in its dtype → (tree, manifest)."""
+        target leaf's device in its dtype → (tree, manifest).
+
+        ``shardings``: a tree of ``target_tree``'s structure (dicts may
+        leave keys out) whose ``NamedSharding`` leaves place their arrays
+        on that mesh: elastic restore onto another mesh than the one that
+        saved.  Without one, a DTensor target leaf gives its placements.
+        """
+        from ..sharding.specs import NamedSharding, distribute_local, spec_of
+
         path = os.path.join(self.dir, f"ckpt_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         values = {}
         with np.load(os.path.join(path, "arrays.npz")) as data:
+            sh = _flatten(shardings) if shardings is not None else {}
             for key, ref in _flatten(target_tree).items():
                 arr = data[key]
-                if isinstance(ref, torch.Tensor):
-                    values[key] = torch.from_numpy(arr).to(device=ref.device, dtype=ref.dtype)
-                else:
+                if not isinstance(ref, torch.Tensor):
                     values[key] = arr
+                    continue
+                t = torch.from_numpy(arr).to(device=ref.device, dtype=ref.dtype)
+                where = sh.get(key)
+                if where is None and is_dtensor(ref):
+                    where = NamedSharding(ref.device_mesh,
+                                          spec_of(ref.placements, ref.device_mesh, ref.ndim))
+                if where is not None and where.mesh.size() > 1:
+                    t = distribute_local(t, where.mesh, where.spec)
+                values[key] = t
         return _rebuild(target_tree, values), manifest
 
-    def restore_latest(self, target_tree):
+    def restore_latest(self, target_tree, shardings=None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return self.restore(step, target_tree)
+        return self.restore(step, target_tree, shardings)

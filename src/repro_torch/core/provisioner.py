@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Sequence
 
 import torch
@@ -87,9 +88,28 @@ def grants_from_allocation(
     return grants
 
 
+def init_world_from_env(device: str | torch.device = "cuda") -> None:
+    """Make the default process group from torchrun's environment (``RANK``,
+    ``WORLD_SIZE``): NCCL for the card, one device a rank; gloo for the CPU.
+    Nothing when the group exists or the environment has no world."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
+        return
+    if as_device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+
+
 def world_size() -> int:
     """Ranks in the default process group; 1 without one."""
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def lead_rank() -> bool:
+    """Whether this process is rank 0 of its world (or has none): the one
+    that prints and writes a job's logs."""
+    return world_size() == 1 or dist.get_rank() == 0
 
 
 def mesh_shape(chips: int, available: int, min_model: int = 1) -> tuple[int, int]:

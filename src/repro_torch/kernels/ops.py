@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import sys
 import time
 from typing import NamedTuple
 
@@ -419,7 +420,10 @@ def wkv6(
     V)`` float32 or None for zeros; chunks of ``min(chunk, T)`` tokens.
     Float-close to :func:`.ref.wkv6_chunked`, which CPU tensors run.  The
     kernel takes chunks of at most 32 tokens and K ≤ 64 (one tile), any V.
+    DTensor inputs run :func:`_sharded_wkv6` on each rank's heads.
     """
+    if is_dtensor(r):
+        return _sharded_wkv6(r, k, v, w, u, state, chunk, plain)
     if r.device.type == "cpu" or plain:
         return ref.wkv6_chunked(r, k, v, w, u, state, chunk)
     if r.device.type != "cuda":
@@ -454,6 +458,32 @@ def wkv6(
         int(r.dtype == torch.bfloat16), o.data_ptr(), s_out.data_ptr(), stream,
     )
     return o, s_out
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor.  None is before something imported
+    ``torch.distributed.tensor`` (the market paths never do), so the
+    wrappers do not import it themselves."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _sharded_wkv6(r, k, v, w, u, state, chunk, plain):
+    """:func:`wkv6` on DTensors, on each rank's batch rows and heads
+    (``sharding.specs.local_apply``): the recurrence is independent per
+    (row, head), so the kernel runs on the local shards and the outputs keep
+    their layout.  ``r``'s placements pick the layout (a shard of T or K is
+    made whole first: the recurrence needs both); ``u`` and the state follow.
+    """
+    from ..sharding.specs import local_apply
+
+    bh = {0: "batch", 2: "heads"}
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    return local_apply(
+        lambda *a: wkv6(*a, chunk=chunk, plain=plain), [r, k, v, w, u, state],
+        [bh, bh, bh, bh, {0: "heads"}, {0: "batch", 1: "heads"}],
+        [bh, {0: "batch", 1: "heads"}], [(b, t, h, vd), (b, h, kd, vd)])
 
 
 # ---------------------------------------------------------------------------
@@ -772,8 +802,52 @@ def ordered_gather(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     outside ``0 .. len(table) - 1`` gathers zeros.  Its gradient adds the
     incoming rows into zeros with :func:`ordered_rows_add`, in operand order
     (rows out of range dropped), where CUDA's backward of ``table[index]``
-    adds with atomics in any order."""
+    adds with atomics in any order.  A DTensor ``table`` or ``index`` runs
+    :func:`_sharded_gather` on the local shards."""
+    if is_dtensor(table) or is_dtensor(index):
+        return _sharded_gather(table, index)
     return _OrderedGather.apply(table, index)
+
+
+def _sharded_gather(table, index):
+    """:func:`ordered_gather` on each rank's shards, with no gather of the
+    table.  Mesh dim by mesh dim: where the table's rows are sharded (a
+    vocab-parallel lookup) each rank gathers the indices in its own row
+    range, zeros for the rest, and the result is ``Partial``, summed where
+    a later op needs it; where its columns are sharded the result is
+    sharded on the last dim; where the table is replicated the result
+    takes the index's placement (and the table's gradient is ``Partial``
+    there).  The index is replicated on the mesh dims that shard the
+    table.  The backward adds the gradient rows into the
+    local shard with :func:`ordered_rows_add`, in operand order, over this
+    rank's indices: deterministic for a given world."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..sharding.specs import as_dtensor, from_local, shard_offsets
+
+    mesh = (table if is_dtensor(table) else index).device_mesh
+    table = as_dtensor(table, mesh)
+    tp = [Replicate() if p.is_partial() else p for p in table.placements]
+    table = table.redistribute(mesh, tp)
+    index = as_dtensor(index, mesh)
+    ip, out_pl = [], []
+    for t_p, i_p in zip(tp, index.placements):
+        if isinstance(t_p, Shard):  # the index is whole on this mesh dim
+            ip.append(Replicate())
+            out_pl.append(Partial() if t_p.dim == 0 else Shard(index.ndim + t_p.dim - 1))
+        else:
+            ip.append(Replicate() if i_p.is_partial() else i_p)
+            out_pl.append(ip[-1])
+    index = index.redistribute(mesh, ip)
+    _, offset = shard_offsets(table.shape, mesh, tp)
+    local_index = index.to_local()
+    if offset[0]:
+        local_index = local_index - offset[0]
+    # a rank that gathers only its own indices holds part of the gradient
+    grad_pl = [Partial() if isinstance(i_p, Shard) and not isinstance(t_p, Shard) else t_p
+               for t_p, i_p in zip(tp, ip)]
+    rows = _OrderedGather.apply(table.to_local(grad_placements=grad_pl), local_index)
+    return from_local(rows, mesh, out_pl, tuple(index.shape) + tuple(table.shape[1:]))
 
 
 def ordered_scatter_rows(n: int, index: torch.Tensor, source: torch.Tensor) -> torch.Tensor:

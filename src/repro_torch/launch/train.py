@@ -1,9 +1,11 @@
-"""Training entry point: real steps on one device (the card by default), with
-checkpoint and restart, a NaN guard, a heartbeat and a metrics log (the port
-of ``repro.launch.train``).
+"""Training entry point: real steps on one device (the card by default) or a
+(data, model) mesh of ranks, with checkpoint and restart, a NaN guard, a
+heartbeat and a metrics log (the port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \\
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/run1 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen3-1.7b --smoke --steps 5 --mesh 2x2 --device cpu
 
 Takes the reference's flags plus ``--device``.  Weights are a random init
 from ``torch.Generator(device).manual_seed(seed)`` in float32; batches come
@@ -11,42 +13,59 @@ from ``SyntheticLM`` (the reference's batches, bit for bit).  A run with a
 checkpoint directory resumes from its latest checkpoint.  A non-finite loss
 returns 3, so a supervisor restarts from the last good checkpoint.  The
 metrics log has one JSON line a step: ``step``, ``loss`` and ``step_ms``
-(host clock around the step, the loss read back included).  Training runs
-on one rank: a mesh of more than one device raises ``NotImplementedError``
-(ROADMAP queue 1, 'Sharding').
+(host clock around the step, the loss read back included).
+
+``--mesh DxM`` of more than one rank needs an initialised
+``torch.distributed`` world of D·M ranks: torchrun's environment (then the
+group is made here: NCCL for the card, gloo for the CPU) or a group the
+caller made.  Every rank draws the same weights and batches; the weights
+are placed by ``validated_pspec_tree`` as DTensors, and the step runs under
+``sharding.use_mesh``.  Rank 0 prints, writes the metrics and the
+heartbeat; a checkpoint is gathered by every rank and written by rank 0.
+A mesh of one rank is the plain one-device path.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
 import time
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..checkpoint.checkpoint import Checkpointer
 from ..configs import ARCH_IDS, get_config, get_smoke
-from ..core.provisioner import DeviceGrant, grant_to_mesh, world_size
+from ..core.provisioner import (DeviceGrant, grant_to_mesh, init_world_from_env, lead_rank,
+                                world_size)
 from ..core.types import as_device
 from ..data.pipeline import SyntheticLM
 from ..models import get_api
-from ..models.config import SHARDING_ITEM, not_ported
-from ..models.params import init_params
+from ..models.params import init_params, shard_params, validated_pspec_tree
+from ..sharding import use_mesh
 from ..train.optimizer import AdamW
 from ..train.train_step import batch_to_device, init_train_state, make_train_step
 
 
-def build_mesh(spec: str | None, device: torch.device):
-    """The (data, model) mesh ``spec`` ("DxM") asks for, or every rank on
-    the data axis; more than one device raises."""
+def build_mesh(spec: str | None, device: torch.device) -> DeviceMesh:
+    """The (data, model) mesh ``spec`` ("DxM") asks for, or every rank of
+    the world on the data axis.  More than one rank needs an initialised
+    world of exactly that many ranks (torchrun's is made here)."""
+    init_world_from_env(device)
     if spec:
         d, m = (int(x) for x in spec.split("x"))
     else:
         d, m = world_size(), 1
-    if d * m > 1:
-        raise not_ported(f"training on a {d}x{m} mesh", SHARDING_ITEM)
-    return grant_to_mesh(DeviceGrant("train", "local", 1), device=device)
+    if d * m == 1:
+        return grant_to_mesh(DeviceGrant("train", "local", 1), device=device)
+    if world_size() != d * m:
+        raise RuntimeError(f"a {d}x{m} mesh needs a torch.distributed world of {d * m} ranks, "
+                           f"found {world_size()}: run under torchrun --nproc-per-node "
+                           f"{d * m}, or initialise the process group first")
+    return DeviceMesh(device.type, torch.arange(d * m).reshape(d, m),
+                      mesh_dim_names=("data", "model"))
 
 
 def main(argv=None) -> int:
@@ -75,50 +94,55 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     api = get_api(cfg)
-    build_mesh(args.mesh, dev)
+    mesh = build_mesh(args.mesh, dev)
+    lead = lead_rank()
+    say = functools.partial(print, flush=True) if lead else (lambda *a, **k: None)
     opt = AdamW(lr=args.lr)
     step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum, compress=args.compress)
     pipe = SyntheticLM(cfg, args.batch, args.seq, seed=args.seed)
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
-    params = init_params(torch.Generator(device=dev).manual_seed(args.seed), api.decls(cfg),
-                         torch.float32, dev)
-    state = init_train_state(cfg, opt, params, compress=args.compress)
-    if ckpt is not None and ckpt.latest_step() is not None:
-        restored, manifest = ckpt.restore_latest({"params": params, "state": state})
-        params, state = restored["params"], restored["state"]
-        start_step = manifest["step"] + 1
-        print(f"[train] resumed from step {manifest['step']}", flush=True)
+    with use_mesh(mesh):
+        params = init_params(torch.Generator(device=dev).manual_seed(args.seed), api.decls(cfg),
+                             torch.float32, dev)
+        params = shard_params(params, mesh, validated_pspec_tree(api.decls(cfg), mesh))
+        state = init_train_state(cfg, opt, params, compress=args.compress)
+        if ckpt is not None and ckpt.latest_step() is not None:
+            restored, manifest = ckpt.restore_latest({"params": params, "state": state})
+            params, state = restored["params"], restored["state"]
+            start_step = manifest["step"] + 1
+            say(f"[train] resumed from step {manifest['step']}")
 
-    t0 = time.time()
-    with open(args.metrics, "a") if args.metrics else open(os.devnull, "w") as mfile:
-        for step in range(start_step, args.steps):
-            if step == args.fault_step:
-                raise RuntimeError(f"injected fault at step {step}")
-            t_step = time.perf_counter()
-            batch = batch_to_device(pipe(step), cfg, dev)
-            params, state, metrics = step_fn(params, state, batch)
-            loss = float(metrics["loss"])
-            step_ms = (time.perf_counter() - t_step) * 1e3
-            if not math.isfinite(loss):
-                # NaN guard: exit non-zero so the supervisor restarts from
-                # the last good checkpoint (and skips this data window).
-                print(f"[train] NaN/Inf loss at step {step} — aborting for restart", flush=True)
-                return 3
-            if args.heartbeat:
-                with open(args.heartbeat, "w") as f:
-                    f.write(str(step))
-            mfile.write(json.dumps({"step": step, "loss": loss, "step_ms": step_ms}) + "\n")
-            mfile.flush()
-            if step % 10 == 0 or step == args.steps - 1:
-                dt = time.time() - t0
-                print(f"[train] step {step} loss {loss:.4f} ({dt:.1f}s)", flush=True)
-            if ckpt is not None and (step % args.ckpt_every == 0 or step == args.steps - 1):
-                ckpt.save(step, {"params": params, "state": state})
+        t0 = time.time()
+        log = args.metrics if args.metrics and lead else os.devnull
+        with open(log, "a") as mfile:
+            for step in range(start_step, args.steps):
+                if step == args.fault_step:
+                    raise RuntimeError(f"injected fault at step {step}")
+                t_step = time.perf_counter()
+                batch = batch_to_device(pipe(step), cfg, dev)
+                params, state, metrics = step_fn(params, state, batch)
+                loss = float(metrics["loss"])
+                step_ms = (time.perf_counter() - t_step) * 1e3
+                if not math.isfinite(loss):
+                    # NaN guard: exit non-zero so the supervisor restarts from
+                    # the last good checkpoint (and skips this data window).
+                    say(f"[train] NaN/Inf loss at step {step} — aborting for restart")
+                    return 3
+                if args.heartbeat and lead:
+                    with open(args.heartbeat, "w") as f:
+                        f.write(str(step))
+                mfile.write(json.dumps({"step": step, "loss": loss, "step_ms": step_ms}) + "\n")
+                mfile.flush()
+                if step % 10 == 0 or step == args.steps - 1:
+                    dt = time.time() - t0
+                    say(f"[train] step {step} loss {loss:.4f} ({dt:.1f}s)")
+                if ckpt is not None and (step % args.ckpt_every == 0 or step == args.steps - 1):
+                    ckpt.save(step, {"params": params, "state": state})
     if ckpt is not None:
         ckpt.wait()
-    print("[train] done", flush=True)
+    say("[train] done")
     return 0
 
 

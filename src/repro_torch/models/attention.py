@@ -11,14 +11,20 @@ One implementation covers the zoo's attention variants:
 Plain torch ops that mirror the reference's arithmetic: float32 products of
 the activations (``preferred_element_type=float32``), a float32 softmax cast
 to ``v.dtype``, masks filled with ``NEG_INF`` (not ``-inf``).  The
-reference's ``shard(...)`` / ``replicate`` / ``shard_cache_kv`` layout hints
-have nothing to do at one rank and are left out (ROADMAP queue 1,
-'Sharding').
+reference's layout hints (``shard``, ``replicate``, ``shard_cache_kv``,
+``shard_decode_logits``) stand at its sites: DTensor layouts under a mesh,
+nothing on plain tensors.
 """
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+from torch.distributed.tensor import Shard
+
+from ..kernels.ops import is_dtensor
+from ..sharding import replicate, shard, shard_cache_kv, shard_decode_logits
+from ..sharding.specs import local_apply, shard_offsets
 from .config import ModelConfig
 from .layers import apply_rope, matmul, rmsnorm, rope_angles
 from .params import ParamDecl
@@ -110,13 +116,19 @@ def mha(
     Two GQA strategies, as the reference picks them: prefill and training
     (``grouped=False``) expand the KV heads to the query heads; decode
     (``grouped=True``) contracts grouped queries against the compact cache.
+    DTensor inputs run on each rank's rows and heads (:func:`local_heads`).
     """
+    if is_dtensor(q):
+        return local_heads(mha, q, k, v, keep, grouped=grouped)
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     if grouped and H != KVH:
         g = H // KVH
-        qg = q.reshape(B, S, KVH, g, hd)
+        # decode queries are tiny; replicate them so their head sharding
+        # cannot force a gather of the sequence-sharded cache
+        qg = replicate(q).reshape(B, S, KVH, g, hd)
         logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * (hd**-0.5)
+        logits = shard_decode_logits(logits, heads_dim=1, seq_dim=4)
         if keep is not None:
             logits = torch.where(keep[:, None, None, :, :], logits, NEG_INF)
         w = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -127,6 +139,10 @@ def mha(
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
     logits = torch.einsum("bsnh,btnh->bnst", q.float(), k.float()) * (hd**-0.5)
+    if grouped:  # decode: stay consistent with the cache layout
+        logits = shard_decode_logits(logits, heads_dim=1, seq_dim=3)
+    else:
+        logits = shard(logits, "batch", "heads", None, "kv_seq")
     if keep is not None:
         logits = torch.where(keep[:, None, :, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -146,7 +162,11 @@ def blockwise_mha(
 ) -> torch.Tensor:
     """Flash-style attention: a loop over KV blocks with a running (max, sum,
     acc) in float32, so the S×T score matrix never materialises.  Equal to
-    softmax(QKᵀ)V up to float32 association."""
+    softmax(QKᵀ)V up to float32 association; DTensor inputs run on each
+    rank's rows and heads (:func:`local_heads`)."""
+    if is_dtensor(q):
+        return local_heads(blockwise_mha, q, k, v, q_pos, causal=causal, window=window,
+                           block=block)
     B, S, H, hd = q.shape
     T = k.shape[1]
     hd_v = v.shape[-1]
@@ -181,6 +201,36 @@ def blockwise_mha(
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(v.dtype)  # (B, S, H, hd_v)
+
+
+def local_heads(core, q, k, v, mask, **kw):
+    """``core(q, k, v, mask, **kw)``, an attention core over (B, S, H, d)
+    DTensor queries and (B, T, KVH, d) keys and values, on each rank's batch
+    rows and query heads (``sharding.specs.local_apply``): attention keeps
+    rows and heads apart, and an einsum that merges a sharded head dim with
+    the batch has no DTensor strategy (torch 2.11).  The keys and values
+    follow the query heads where the mesh splits both alike; else each
+    rank takes whole the key/value head of each of its query heads.  A
+    sequence-sharded KV cache is gathered whole."""
+    mesh = q.device_mesh
+    B, S, H, _ = q.shape
+    KVH = k.shape[2]
+    heads = [i for i, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 2]
+    n = math.prod(mesh.size(i) for i in heads)
+    bh, b = {0: "batch", 2: "heads"}, {0: "batch"}
+    if KVH % n == 0:
+        def fn(ql, kl, vl, ml):
+            return core(ql, kl, vl, ml, **kw)
+        kv = bh
+    else:
+        h0 = shard_offsets(q.shape, mesh, q.placements)[1][2]
+        idx = torch.div(h0 + torch.arange(H // n, device=q.device), H // KVH,
+                        rounding_mode="floor")
+
+        def fn(ql, kl, vl, ml):
+            return core(ql, kl.index_select(2, idx), vl.index_select(2, idx), ml, **kw)
+        kv = b
+    return local_apply(fn, [q, k, v, mask], [bh, kv, kv, b], [bh], [(B, S, H, v.shape[-1])])
 
 
 def attention(
@@ -221,10 +271,11 @@ def attention(
             cos_q, sin_q = rope_angles(q_pos, hd, cfg.rope_theta)
             q = apply_rope(q, cos_q, sin_q)
             k = apply_rope(k, cos_q, sin_q)  # self-attention: the same positions
+        k = shard(k, "batch", "seq", "kv_heads", None)
         if cache is not None:
             # self-attention decode: this step's K/V written at cache_idx
-            ck = cache_write(cache["k"], k, cache_idx)
-            cv = cache_write(cache["v"], v, cache_idx)
+            ck = shard_cache_kv(cache_write(cache["k"], k, cache_idx))
+            cv = shard_cache_kv(cache_write(cache["v"], v, cache_idx))
             keep = _mask(q_pos, ck.shape[1], causal=True, window=window)
             out = mha(q, ck, cv, keep, grouped=True)
             return _out(out, p["wo"]), {"k": ck, "v": cv}
@@ -237,9 +288,11 @@ def attention(
                 g = q.shape[2] // k.shape[2]
                 k = torch.repeat_interleave(k, g, dim=2)
                 v = torch.repeat_interleave(v, g, dim=2)
+            q = shard(q, "batch", "seq", "heads", None)
             out = blockwise_mha(q, k, v, q_pos, causal=True, window=window)
             return _out(out, p["wo"]), None
         else:
             keep = _mask(q_pos, k.shape[1], causal=causal, window=window)
+    q = shard(q, "batch", "seq", "heads", None)
     out = mha(q, k, v, keep)
     return _out(out, p["wo"]), new_cache

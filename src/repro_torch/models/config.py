@@ -19,15 +19,6 @@ import torch
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
 
-# The ROADMAP queue 1 item that ports training and serving on a mesh.
-SHARDING_ITEM = "Sharding"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error an entry point raises for what a later ROADMAP item ports."""
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, {item!r}")
-
-
 @dataclasses.dataclass(frozen=True)
 class MoECfg:
     num_experts: int

@@ -14,13 +14,20 @@ A prefill or training pass runs the recurrence as the reference's
 ``jax.lax.associative_scan`` does: the same tree of pairwise combines
 (:func:`associative_scan`), about 2·log2(S) strided torch ops, never a loop
 over the sequence.  Decode is one O(lru_width) step, a 3-sample conv tail and
-a rolling window KV cache.  Plain torch: the reference reaches no kernel.
+a rolling window KV cache.  Plain torch: the reference reaches no kernel. Under a mesh the reference's ``shard`` layout hints stand at its sites
+(DTensor layouts; nothing on plain tensors).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
+from ..kernels.ops import is_dtensor
+from ..sharding import shard
+from ..sharding.specs import local_apply
 from .attention import _out, _project, attention, attn_decls, mha
 from .config import ModelConfig
 from .layers import apply_rope, glu, glu_decls, matmul, rmsnorm, rope_angles
@@ -52,11 +59,30 @@ def rec_block_decls(cfg: ModelConfig) -> dict:
 
 
 def _bdiag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Block-diagonal gate ``bshc,hce->bshe`` in float32, plus the bias."""
+    """Block-diagonal gate ``bshc,hce->bshe`` in float32, plus the bias.  On
+    DTensors each rank computes its rows' and blocks' gates
+    (``sharding.specs.local_apply``): the width splits into blocks and
+    merges back on local tensors, since a merge after a product sharded
+    inside a block has no DTensor strategy (torch 2.11).  A width whose
+    shards do not align with the blocks is made whole first."""
     B, S, W = x.shape
-    h = x.reshape(B, S, LRU_BLOCKS, W // LRU_BLOCKS)
-    y = torch.einsum("bshc,hce->bshe", h.float(), w.float())
-    return y.reshape(B, S, W) + b.float()
+
+    def gate(xl, wl, bl):
+        h = xl.reshape(*xl.shape[:2], wl.shape[0], W // LRU_BLOCKS)
+        y = torch.einsum("bshc,hce->bshe", h.float(), wl.float())
+        return y.reshape(xl.shape) + bl.float()
+
+    if not is_dtensor(x):
+        return gate(x, w, b)
+    mesh = x.device_mesh
+    split = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                      if isinstance(p, Shard) and p.dim == 2)
+    if LRU_BLOCKS % split:
+        x = x.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                                  for p in x.placements])
+    blocks = {0: "batch", 2: "blocks"}
+    return local_apply(gate, [x, w, b], [blocks, {0: "blocks"}, {0: "blocks"}], [blocks],
+                       [(B, S, W)])
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -138,7 +164,7 @@ def recurrent_block(
 ) -> tuple[torch.Tensor, dict]:
     g = cfg.griffin
     y = F.gelu(matmul(x, p["wy"]).float(), approximate="tanh")  # jax.nn.gelu's default
-    xx = matmul(x, p["wx"])
+    xx = shard(matmul(x, p["wx"]), "batch", "seq", "lru")
     xx, conv_tail = _conv1d(xx, p["conv_w"], p["conv_b"], state["conv"] if state else None)
     h, lru_last = rg_lru(xx.float(), p, g.c_scale, state["lru"] if state else None)
     out = matmul((h * y).to(x.dtype), p["wo"])

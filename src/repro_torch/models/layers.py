@@ -9,14 +9,19 @@ model.  On the card the float32 product must be full float32, not TF32:
 PyTorch's default, which ``launch/serve.py``, ``launch/train.py`` and
 ``chip_smoke.py`` set explicitly (``torch.backends.cuda.matmul.allow_tf32 =
 False``) where they build the model.  Norms, RoPE and the softmax run in
-float32.
+float32.  On DTensors (under a mesh) :func:`embed_lookup` is a
+vocab-parallel lookup and :func:`label_logit` a vocab-parallel gather,
+each on local shards.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops
+from ..sharding import shard
+from ..sharding.specs import as_dtensor, from_local, shard_offsets
 from .params import ParamDecl
 
 
@@ -67,6 +72,7 @@ def glu_decls(d_model: int, d_ff: int, act: str = "silu") -> dict:
 
 def glu(x: torch.Tensor, p: dict, act: str = "silu") -> torch.Tensor:
     g = matmul(x, p["wg"])
+    g = shard(g, "batch", None, "ff") if g.ndim == 3 else g
     if act == "relu2":  # nemotron/minitron: squared ReLU, non-gated
         h = torch.square(torch.relu(g.float())).to(x.dtype)
     elif act == "silu":
@@ -97,6 +103,26 @@ def lm_logits(x: torch.Tensor, wout: torch.Tensor) -> torch.Tensor:
     return matmul(x, wout)
 
 
+def label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lf[..., labels]`` (the logit of each position's label).  On
+    vocab-sharded DTensor logits each rank gathers the labels in its own
+    vocab range (zeros for the rest) and the result is ``Partial``, the
+    reference's one-hot product without the one-hot."""
+    if not isinstance(lf, DTensor):
+        return torch.gather(lf, -1, labels[..., None])[..., 0]
+    mesh, last = lf.device_mesh, lf.ndim - 1
+    pl = [Replicate() if p.is_partial() else p for p in lf.placements]
+    lf = lf.redistribute(mesh, pl)
+    lab_pl = [p if isinstance(p, Shard) and p.dim < last else Replicate() for p in pl]
+    lab = as_dtensor(labels, mesh).redistribute(mesh, lab_pl).to_local()
+    local, offset = shard_offsets(lf.shape, mesh, pl)
+    idx = lab - offset[last]
+    keep = (idx >= 0) & (idx < local[last])
+    val = torch.gather(lf.to_local(), -1, torch.where(keep, idx, 0)[..., None])[..., 0]
+    out_pl = [Partial() if isinstance(p, Shard) and p.dim == last else p for p in pl]
+    return from_local(torch.where(keep, val, 0.0), mesh, out_pl, lf.shape[:-1])
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token cross-entropy (float32) with the z-loss stabiliser
@@ -108,8 +134,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    true_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = lse - true_logit
+    nll = lse - label_logit(lf, labels.long())
     if z_loss:
         nll = nll + z_loss * lse**2
     return torch.mean(nll)

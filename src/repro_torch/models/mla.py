@@ -13,14 +13,15 @@ The cache a token is kv_lora + rope_dim (576 for V3) instead of 2·H·head_dim.
 Plain torch ops with the reference's arithmetic: float32 products cast back
 as the reference casts them, a float32 softmax, masks filled with
 ``NEG_INF`` (not ``-inf``).  The reference's ``shard`` / ``replicate`` /
-``shard_decode_logits`` layout hints are left out (ROADMAP queue 1,
-'Sharding').
+``shard_cache_latent`` / ``shard_decode_logits`` layout hints stand at its
+sites: DTensor layouts under a mesh, nothing on plain tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from .attention import FLASH_MIN_KV, NEG_INF, _out, _project, blockwise_mha, cache_write
+from ..sharding import replicate, shard, shard_cache_latent, shard_decode_logits
+from .attention import FLASH_MIN_KV, NEG_INF, _out, _project, blockwise_mha, cache_write, mha
 from .config import ModelConfig
 from .layers import apply_rope, matmul, rmsnorm, rope_angles
 from .params import ParamDecl
@@ -81,12 +82,14 @@ def mla_attention(
     q_nope, q_rope = _project_q(x, p, cfg)
     cos, sin = rope_angles(q_pos, m.rope_dim, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
+    q_nope = shard(q_nope, "batch", "seq", "heads", None)
     ckv, krope = _project_kv_latent(x, p, cfg, q_pos)
 
     if cache is None:
         # training / prefill: K, V expanded from the latent
         k_nope = _project(ckv, p["wk_up"])
         v = _project(ckv, p["wv_up"])
+        k_nope = shard(k_nope, "batch", "seq", "heads", None)
         B, S = x.shape[:2]
         kr = krope[:, :, None, :].expand(B, S, H, m.rope_dim)
         q = torch.cat([q_nope, q_rope], dim=-1)
@@ -94,22 +97,26 @@ def mla_attention(
         if S >= FLASH_MIN_KV:
             # blockwise, no S×S scores; its (nope + rope)**-0.5 is this scale
             out = blockwise_mha(q, k, v, q_pos, causal=True)
-        else:
-            logits = torch.einsum("bsnh,btnh->bnst", q.float(), k.float()) * scale
-            logits = torch.where(_causal(q_pos, S), logits, NEG_INF)
-            w = torch.softmax(logits, dim=-1).to(v.dtype)
-            out = torch.einsum("bnst,btnh->bsnh", w.float(), v.float())
+        else:  # mha's scale, hd**-0.5 of the (nope + rope) width, is this scale
+            out = mha(q, k, v, _causal(q_pos, S)[:, 0])
         return _out(out.to(x.dtype), p["wo"]), None
 
     # decode and chunked prefill: absorbed attention over the latent cache
-    ckv_c = cache_write(cache["ckv"], ckv, cache_idx)
-    krope_c = cache_write(cache["krope"], krope, cache_idx)
+    ckv_c = shard_cache_latent(cache_write(cache["ckv"], ckv, cache_idx))
+    krope_c = shard_cache_latent(cache_write(cache["krope"], krope, cache_idx))
     q_abs = torch.einsum("bsnh,lnh->bsnl", q_nope.float(), p["wk_up"].float()).to(x.dtype)
+    # decode queries are small; replicating them lets the T-sharded latent
+    # cache stay put (its head-less layout cannot match head-sharded queries)
+    q_abs = replicate(q_abs)
+    q_rope_r = replicate(q_rope)
     logits = (torch.einsum("bsnl,btl->bnst", q_abs.float(), ckv_c.float())
-              + torch.einsum("bsnr,btr->bnst", q_rope.float(), krope_c.float())) * scale
+              + torch.einsum("bsnr,btr->bnst", q_rope_r.float(), krope_c.float())) * scale
+    logits = shard_decode_logits(logits, heads_dim=1, seq_dim=3, prefer_seq=True)
     logits = torch.where(_causal(q_pos, ckv_c.shape[1]), logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bnst,btl->bsnl", w.float(), ckv_c.float())
+    # heads ahead of the positions in the product's rows: a heads-sharded
+    # DTensor merges them outer dim first, which DTensor 2.11 can shard
+    o_lat = torch.einsum("bnst,btl->bnsl", w.float(), ckv_c.float()).transpose(1, 2)
     out = torch.einsum("bsnl,lnh->bsnh", o_lat.to(x.dtype).float(),
                        p["wv_up"].float()).to(x.dtype)
     return _out(out, p["wo"]), {"ckv": ckv_c, "krope": krope_c}

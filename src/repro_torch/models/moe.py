@@ -30,9 +30,12 @@ No host synchronisation anywhere in the block (no ``.item()``, no
 ``nonzero``, no data-dependent shapes), so a decode step that runs it
 records into a CUDA graph.  Products are float32 (TF32 off), as the
 reference's ``preferred_element_type=float32``; ``h`` is cast to
-``x.dtype`` before ``wd`` and the combine adds in ``x.dtype``.  The
-reference's ``shard(...)`` layout hints are left out (ROADMAP queue 1,
-'Sharding').
+``x.dtype`` before ``wd`` and the combine adds in ``x.dtype``.
+
+Under a mesh the reference's layout hints (``shard``: groups on ``data``,
+experts on ``model``) are DTensor layouts, and the block runs on each
+rank's groups and experts (:func:`_sharded_experts`), the dispatch and the
+combine on local rows.
 """
 from __future__ import annotations
 
@@ -41,8 +44,11 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops
+from ..sharding import shard
+from ..sharding.specs import from_local, shard_offsets
 from .config import ModelConfig
 from .layers import glu, glu_decls
 from .params import ParamDecl
@@ -119,6 +125,74 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig) -> Routing:
     return Routing(ids, buf_tok, buf_gate, aux)
 
 
+def _experts(xt: torch.Tensor, r: Routing, wg: torch.Tensor, wu: torch.Tensor,
+             wd: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """Experts ``lo .. lo + len(wg) - 1`` of routing ``r`` over ``xt`` (G,
+    Tg, D): dispatch gather → the three products → gate-weighted combine,
+    (G, Tg, D) in ``xt.dtype``."""
+    G, Tg, D = xt.shape
+    El = wg.shape[0]
+    buf_tok, buf_gate = r.buf_tok[:, lo:lo + El], r.buf_gate[:, lo:lo + El]
+    C = buf_tok.shape[-1]
+    # rows of the flattened (G·Tg, D) tokens; an empty slot's lies out of range
+    base = (torch.arange(G, device=xt.device) * Tg)[:, None, None]
+    rows = torch.where(buf_tok < Tg, buf_tok + base, G * Tg).reshape(G * El * C)
+    xg = ops.ordered_gather(xt.reshape(G * Tg, D), rows).reshape(G, El, C, D)
+    xg = shard(xg, "groups", "experts", "capacity", None)
+
+    xg32 = xg.float()
+    h_g = torch.einsum("gecd,edf->gecf", xg32, wg.float())
+    h_u = torch.einsum("gecd,edf->gecf", xg32, wu.float())
+    h = F.silu(h_g) * h_u
+    y = torch.einsum("gecf,efd->gecd", h.to(xt.dtype).float(), wd.float()).to(xt.dtype)
+    y = y * buf_gate[..., None].to(y.dtype)
+    y = shard(y, "groups", "experts", "capacity", None)
+    return ops.ordered_scatter_rows(G * Tg, rows, y.reshape(G * El * C, D)).reshape(G, Tg, D)
+
+
+def _sharded_experts(xt: DTensor, p: dict, cfg: ModelConfig) -> tuple[DTensor, DTensor]:
+    """Routing and experts of DTensor tokens ``xt`` (G, Tg, D) on each rank's
+    groups and experts.  Mesh dims that shard the groups ("G dims") split
+    the tokens; mesh dims that shard the experts' weights ("E dims") split
+    the experts: each rank routes its groups over all E experts (the router
+    replicated), dispatches to its own experts' rows and combines them, so
+    the result is ``Partial`` over the E dims and the kernels see local
+    tensors only.  Everything a rank computes is its share of the sum over
+    the E dims (the aux loss a ``1/|E dims|`` part), so the tokens' and
+    router's gradients are ``Partial`` there and on the G dims, and the
+    experts' weights' gradients ``Partial`` on the G dims."""
+    mesh = xt.device_mesh
+    n = mesh.ndim
+    xt = xt.redistribute(mesh, [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                                for pl in xt.placements])
+    w_pl = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in p["wg"].placements]
+    g_dims = {i for i, pl in enumerate(xt.placements) if isinstance(pl, Shard)}
+    e_dims = {i for i, pl in enumerate(w_pl) if isinstance(pl, Shard)}
+    if g_dims & e_dims:
+        raise ValueError("one mesh dim cannot shard both the MoE groups and the experts")
+    n_g = math.prod(mesh.size(i) for i in g_dims)
+    n_e = math.prod(mesh.size(i) for i in e_dims)
+
+    def part(i, other):
+        return Partial() if i in e_dims or i in g_dims else other
+
+    xt_l = xt.to_local(grad_placements=[Partial() if i in e_dims else xt.placements[i]
+                                        for i in range(n)])
+    router = p["router"].redistribute(mesh, [Replicate()] * n)
+    router_l = router.to_local(grad_placements=[part(i, Replicate()) for i in range(n)])
+    w_l = [p[k].redistribute(mesh, w_pl).to_local(
+        grad_placements=[Partial() if i in g_dims else w_pl[i] for i in range(n)])
+        for k in ("wg", "wu", "wd")]
+    lo = shard_offsets(p["wg"].shape, mesh, w_pl)[1][0]
+    r = route(xt_l, router_l, cfg)
+    out_l = _experts(xt_l, r, *w_l, lo=lo)
+    out = from_local(out_l, mesh, [Partial() if i in e_dims else xt.placements[i]
+                                   for i in range(n)], xt.shape)
+    aux = from_local(r.aux / (n_g * n_e), mesh, [part(i, Replicate()) for i in range(n)], ())
+    return out, aux
+
+
 def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (out (B, S, D), aux load-balance loss, float32 scalar)."""
     m = cfg.moe
@@ -126,25 +200,14 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
     T = B * S
     G = m.groups if T % m.groups == 0 else 1
     Tg = T // G
-    E = m.num_experts
-    C = capacity(Tg, cfg)
 
-    xt = x.reshape(G, Tg, D)
-    r = route(xt, p["router"], cfg)
-
-    # rows of the flattened (G·Tg, D) tokens; an empty slot's lies out of range
-    base = (torch.arange(G, device=x.device) * Tg)[:, None, None]
-    rows = torch.where(r.buf_tok < Tg, r.buf_tok + base, G * Tg).reshape(G * E * C)
-    xg = ops.ordered_gather(xt.reshape(G * Tg, D), rows).reshape(G, E, C, D)
-
-    xg32 = xg.float()
-    h_g = torch.einsum("gecd,edf->gecf", xg32, p["wg"].float())
-    h_u = torch.einsum("gecd,edf->gecf", xg32, p["wu"].float())
-    h = F.silu(h_g) * h_u
-    y = torch.einsum("gecf,efd->gecd", h.to(x.dtype).float(), p["wd"].float()).to(x.dtype)
-    y = y * r.buf_gate[..., None].to(y.dtype)
-
-    out = ops.ordered_scatter_rows(G * Tg, rows, y.reshape(G * E * C, D)).reshape(G, Tg, D)
+    xt = shard(x.reshape(G, Tg, D), "groups", None, None)
+    if isinstance(xt, DTensor):
+        out, aux = _sharded_experts(xt, p, cfg)
+    else:
+        r = route(xt, p["router"], cfg)
+        out, aux = _experts(xt, r, p["wg"], p["wu"], p["wd"]), r.aux
+    out = shard(out, "groups", None, None)
     if "shared" in p:
         out = out + glu(xt, p["shared"])
-    return out.reshape(B, S, D), r.aux
+    return out.reshape(B, S, D), aux

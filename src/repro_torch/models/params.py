@@ -8,9 +8,18 @@ holding tensors, with the reference's init kinds and fan-in scales, drawn
 from a ``torch.Generator`` on the target device (its numbers differ from
 ``jax.random``'s; :func:`.convert.params_from_reference` gives the port the
 reference's own weights).  :func:`tree_map` and :func:`tree_leaves` walk
-such trees in ``jax.tree_util``'s order.  The sharding rules
-(``pspec_tree``, ``validated_pspec_tree``) and the dry-run's
-``abstract_params`` wait for ROADMAP queue 1, 'Sharding'.
+such trees in ``jax.tree_util``'s order.
+
+The same declarations give the layout: :func:`pspec_tree` maps each leaf's
+logical axes through a rules table (:data:`DEFAULT_RULES`, Megatron-style)
+to a spec, a tuple of mesh-axis names (``repro_torch.sharding``);
+:func:`validated_pspec_tree` drops the axes whose size on a mesh does not
+divide the dim, reading only the mesh's axis names and sizes; and
+:func:`shard_params` places a tree of full tensors on a ``DeviceMesh`` as
+DTensors by those specs, each rank keeping its own slice (no
+communication: every rank drew the same full tensor).  A mesh of one rank
+keeps plain tensors.  :func:`abstract_params` stands in for the weights on
+the ``meta`` device, so a 1T-parameter tree allocates nothing.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from typing import Any, Callable
 import torch
 
 from ..core.types import as_device
+from ..sharding.specs import Spec, axis_sizes, distribute_local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +81,68 @@ def init_params(generator: torch.Generator, decls: Any, dtype: torch.dtype = tor
     for the CPU); ``generator`` lives on the same device."""
     dev = as_device(device)
     return map_decls(lambda d: _init_leaf(generator, d, dtype, dev), decls)
+
+
+def abstract_params(decls: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
+    """Shape-and-dtype stand-ins of ``decls`` on the ``meta`` device."""
+    return map_decls(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), decls)
+
+
+# Megatron-style default layout: shard the contracting-free "wide" axes over
+# the model axis; replicate d_model; layers are stacked, never sharded.
+DEFAULT_RULES: dict[str | None, Any] = {
+    None: None,
+    "layers": None,
+    "embed": None,
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "qk_head_dim": None,
+    "v_head_dim": None,
+    "ff": "model",
+    "experts": "model",
+    "expert_ff": None,
+    "expert_embed": None,
+    "lora": None,
+    "lru": "model",
+    "conv": None,
+    "frames": None,
+}
+
+
+def pspec_tree(decls: Any, rules: dict | None = None) -> Any:
+    """A spec a leaf: each logical axis through ``rules`` over
+    :data:`DEFAULT_RULES`."""
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    return map_decls(lambda d: tuple(rules.get(a, None) for a in d.axes), decls)
+
+
+def validated_pspec_tree(decls: Any, mesh, rules: dict | None = None) -> Any:
+    """:func:`pspec_tree`, with the entries whose mesh size does not divide
+    the dim dropped; ``mesh`` is read for its axis names and sizes only."""
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    sizes = axis_sizes(mesh)
+
+    def to_spec(d: ParamDecl) -> Spec:
+        spec = []
+        for dim, a in zip(d.shape, d.axes):
+            m = rules.get(a, None)
+            if m is None:
+                spec.append(None)
+                continue
+            total = math.prod(sizes[n] for n in (m if isinstance(m, tuple) else (m,)))
+            spec.append(m if dim % total == 0 else None)
+        return tuple(spec)
+
+    return map_decls(to_spec, decls)
+
+
+def shard_params(params: Any, mesh, specs: Any) -> Any:
+    """``params`` (full tensors, the same on every rank) as DTensors on
+    ``mesh`` laid out by ``specs``; unchanged on a mesh of one rank."""
+    if mesh is None or mesh.size() == 1:
+        return params
+    return tree_map(lambda t, spec: distribute_local(t, mesh, spec), params, specs)
 
 
 def count_params(decls: Any) -> int:

@@ -7,7 +7,8 @@ GroupNorm over heads after the WKV core, SiLU output gate.  The multi-token
 time mix runs the WKV recurrence on the whole (B, S, H, hs) batch through
 ``ops.wkv6`` (the CUDA kernel on the card); one-token decode keeps the
 reference's closed form.  Activations round to ``x.dtype`` where the
-reference rounds them.
+reference rounds them. Under a mesh the reference's ``shard`` layout hints stand at its sites
+(DTensor layouts; nothing on plain tensors).
 """
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.ops import is_dtensor
+from ..sharding import shard
+from ..sharding.specs import local_apply
 from .config import ModelConfig
 from .layers import matmul, rmsnorm
 from .params import ParamDecl
@@ -97,21 +101,19 @@ def time_mix(
     lw = p["decay"].float() + matmul(decay_lora, p["decay_w2"]).float()
     w = torch.exp(-torch.exp(lw))  # (B, S, D) in (0, 1)
 
-    rh = rr.reshape(B, S, H, hs)
+    rh = shard(rr.reshape(B, S, H, hs), "batch", "seq", "heads", None)
     kh = kk.reshape(B, S, H, hs)
     vh = vv.reshape(B, S, H, hs)
     wh = w.reshape(B, S, H, hs)
     bonus = p["bonus"].float()
 
-    if S == 1:
-        # decode: one sequential step, closed form (kv rounds to x.dtype, as
-        # the reference's product of two x.dtype arrays does)
-        s0 = (torch.zeros((B, H, hs, hs), dtype=torch.float32, device=x.device)
-              if wkv_state is None else wkv_state)
-        kv = kh[:, 0, :, :, None] * vh[:, 0, :, None, :]  # (B, H, K, V)
-        o = torch.einsum("bhk,bhkv->bhv", rh[:, 0].float(), s0 + bonus[None, :, :, None] * kv)
-        s_new = wh[:, 0, :, :, None] * s0 + kv
-        o = o[:, None]  # (B, 1, H, V)
+    if S == 1 and is_dtensor(rh):  # each rank's rows and heads
+        bh = {0: "batch", 2: "heads"}
+        o, s_new = local_apply(_wkv_step, [rh, kh, vh, wh, bonus, wkv_state],
+                               [bh, bh, bh, bh, {0: "heads"}, {0: "batch", 1: "heads"}],
+                               [bh, {0: "batch", 1: "heads"}], [(B, 1, H, hs), (B, H, hs, hs)])
+    elif S == 1:
+        o, s_new = _wkv_step(rh, kh, vh, wh, bonus, wkv_state)
     else:
         o, s_new = ops.wkv6(rh, kh, vh, wh, bonus, wkv_state, chunk)
 
@@ -125,13 +127,28 @@ def time_mix(
     return matmul(o, p["wo"]), x[:, -1, :], s_new
 
 
+def _wkv_step(r, k, v, w, u, s0):
+    """One decode step's WKV in closed form: r, k, v (B, 1, H, K) in the
+    activations' dtype, w (B, 1, H, K) and u (H, K) float32, s0 (B, H, K,
+    V) float32 or None for zeros → (o (B, 1, H, V), the new state).  kv
+    rounds to the activations' dtype, as the reference's product of two
+    such arrays does."""
+    B, _, H, K = r.shape
+    if s0 is None:
+        s0 = torch.zeros((B, H, K, v.shape[-1]), dtype=torch.float32, device=r.device)
+    kv = k[:, 0, :, :, None] * v[:, 0, :, None, :]  # (B, H, K, V)
+    o = torch.einsum("bhk,bhkv->bhv", r[:, 0].float(), s0 + u[None, :, :, None] * kv)
+    return o[:, None], w[:, 0, :, :, None] * s0 + kv
+
+
 def channel_mix(
     x: torch.Tensor, p: dict, cfg: ModelConfig, *, shift_prev: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     xx = _shift(x, shift_prev) - x
     xk = x + xx * p["maa_k"].to(x.dtype)
     xr = x + xx * p["maa_r"].to(x.dtype)
-    k = torch.square(torch.relu(matmul(xk, p["wk"]).float())).to(x.dtype)
+    k = shard(matmul(xk, p["wk"]), "batch", "seq", "ff")
+    k = torch.square(torch.relu(k.float())).to(x.dtype)
     kv = matmul(k, p["wv"])
     r = torch.sigmoid(matmul(xr, p["wr"]).float())
     return (r * kv.float()).to(x.dtype), x[:, -1, :]

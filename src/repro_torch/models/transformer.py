@@ -12,7 +12,10 @@ leading dense ``dense_layers``; for ``hybrid`` the repeating ``units`` and
 the ``tail`` list of the layers left over), weights ``(in, out)``,
 activations ``(B, S, D)``.  A Python loop over the layers stands in for
 ``lax.scan``; the stacked leaves are unbound once a call, so autograd
-stacks each leaf's layer gradients once.
+stacks each leaf's layer gradients once.  Under a mesh (parameters that
+are DTensors, ``sharding.use_mesh``) the reference's ``shard`` layout hints
+stand at its sites; the batch reaches the model replicated and the hint
+after the embedding puts it on ``data`` by local slicing, as GSPMD does.
 
   lm_decls(cfg)                             → ParamDecl tree
   lm_forward(params, tokens, cfg, image_embeds=None) → (logits, aux, hidden)
@@ -29,6 +32,7 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from ..core.types import as_device
+from ..sharding import shard
 from .attention import attention, attn_decls
 from .config import ModelConfig
 from .griffin import griffin_layer, griffin_layer_decls
@@ -167,7 +171,7 @@ def _attn_mlp_block(x, lp, cfg: ModelConfig, q_pos, use_moe: bool = False):
     else:
         m = glu(h, lp["mlp"], act=cfg.mlp_act)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + m, aux
+    return shard(x + m, "batch", "seq", "act_embed"), aux
 
 
 # matrix products without batch dimensions: the weight products, which
@@ -212,12 +216,17 @@ def lm_forward(
     if cfg.vlm_patches and image_embeds is not None:
         x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
+    x = shard(x, "batch", "seq", "act_embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def logits(x):
+        return shard(_head(params, x, cfg), "batch", "seq", "vocab")
+
     if cfg.family == "ssm":
         body = _remat(lambda c, lp: rwkv_block(c, lp, cfg)[0], cfg)
         for lp in unbind_layers(params["layers"], cfg.num_layers):
             x = body(x, lp)
-        return _head(params, x, cfg), aux, x
+        return logits(x), aux, x
     q_pos = torch.arange(S, device=x.device).expand(B, S)
     if cfg.family == "hybrid":
         pat = cfg.griffin.pattern
@@ -233,7 +242,7 @@ def lm_forward(
             x = body(x, lp)
         for i, lp in enumerate(params.get("tail", [])):
             x, _ = griffin_layer(x, lp, cfg, pat[i], q_pos)
-        return _head(params, x, cfg), aux, x
+        return logits(x), aux, x
     n_dense = _dense_layers(cfg)
     if n_dense:
         body_d = _remat(lambda c, lp: _attn_mlp_block(c, lp, cfg, q_pos)[0], cfg)
@@ -247,7 +256,7 @@ def lm_forward(
         auxs.append(a)
     if use_moe:
         aux = torch.sum(torch.stack(auxs))
-    return _head(params, x, cfg), aux, x
+    return logits(x), aux, x
 
 
 def lm_loss(
@@ -358,6 +367,7 @@ def decode_step(
     reference's does; a ``vlm`` step is the dense one."""
     _check_family(cfg)
     x = embed_lookup(tokens, params["embed"]).to(cfg.adt())
+    x = shard(x, "batch", None, "act_embed")
     B, S = tokens.shape
     if cfg.family == "ssm":
         states = []

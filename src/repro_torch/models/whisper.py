@@ -12,7 +12,8 @@ generated length) and cross-attention K/V, computed once by
 :func:`whisper_prefill` from the encoder.  The sinusoid table is built once
 per (length, width, dtype, device) and a decode step takes its row with a
 device index, so a step copies nothing from the host and can be captured in
-a CUDA graph.
+a CUDA graph.  Under a mesh the reference's ``shard`` layout hints stand at
+its sites (DTensor layouts; nothing on plain tensors).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.types import as_device
+from ..sharding import shard
 from .attention import _project, attention, attn_decls
 from .config import ModelConfig
 from .layers import embed_decls, embed_lookup, matmul, rmsnorm, softmax_xent
@@ -38,7 +40,7 @@ def _mlp_decls(d: int, ff: int) -> dict:
 
 
 def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    h = matmul(x, p["wi"])
+    h = shard(matmul(x, p["wi"]), "batch", None, "ff")
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)  # jax.nn.gelu's default
     return matmul(h, p["wo"])
 
@@ -84,6 +86,7 @@ def sinusoid_pos(length: int, d: int, dtype: torch.dtype = torch.float32,
 def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = frames.to(cfg.adt()) + sinusoid_pos(frames.shape[1], cfg.d_model, cfg.adt(),
                                             frames.device)
+    x = shard(x, "batch", "frames", "act_embed")
     B, Fr, _ = x.shape
     pos = torch.arange(Fr, device=x.device).expand(B, Fr)
     for lp in unbind_layers(params["enc_layers"], cfg.encdec.encoder_layers):
@@ -114,6 +117,7 @@ def decode_train(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
     B, S = tokens.shape
     y = embed_lookup(tokens, params["embed"]).to(cfg.adt())
     y = y + sinusoid_pos(S, cfg.d_model, y.dtype, y.device)[None]
+    y = shard(y, "batch", "seq", "act_embed")
     pos = torch.arange(S, device=y.device).expand(B, S)
     for lp in unbind_layers(params["dec_layers"], cfg.num_layers):
         y, _, _ = _dec_layer(y, lp, cfg, pos, enc_out)

@@ -14,11 +14,14 @@ cache it warms one prompt token a step.  A Python loop stands in for
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models import ModelConfig, get_api
+from ..models.params import tree_leaves
 
 
 def make_serve_steps(cfg: ModelConfig) -> tuple[Callable, Callable]:
@@ -39,14 +42,25 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None = None,
 
     Greedy is the first index of the maximum (``torch.argmax`` and
     ``jnp.argmax`` both take the first on ties).  With a temperature, Gumbel noise from ``generator`` is added to the
-    scaled logits; it cannot repeat ``jax.random``'s bits.
+    scaled logits; it cannot repeat ``jax.random``'s bits.  Sharded
+    (DTensor) logits give plain tokens, the same on every rank.
     """
     last = logits[:, -1, :].float()
+    if isinstance(last, DTensor):  # the last position's logits, whole on every rank
+        last = last.full_tensor()
     if temperature <= 0.0:
         return torch.argmax(last, dim=-1)[:, None].to(torch.int32)
     u = torch.rand(last.shape, generator=generator, device=last.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     return torch.argmax(last / temperature + gumbel, dim=-1)[:, None].to(torch.int32)
+
+
+def no_grad(params) -> contextlib.AbstractContextManager:
+    """``torch.inference_mode()``, or ``torch.no_grad()`` for DTensor
+    parameters (DTensor ops do not run on inference tensors)."""
+    if any(isinstance(leaf, DTensor) for leaf in tree_leaves(params)):
+        return torch.no_grad()
+    return torch.inference_mode()
 
 
 # families whose decode state advances strictly one token at a time; the
@@ -80,7 +94,7 @@ def generate(
     dev = prompt.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     cache = api.init_cache(cfg, B, S0 + max_new, device=dev)
-    with torch.inference_mode():
+    with no_grad(params):
         if cfg.family in _TOKEN_BY_TOKEN_FAMILIES:
             for i in range(S0):
                 logits, cache = api.decode_step(params, cache, prompt[:, i:i + 1], i, cfg)

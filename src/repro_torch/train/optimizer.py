@@ -9,20 +9,29 @@ optimizer state checkpointed by either package restores in the other.
 Moments are float32 whatever the parameters' dtype.  ``update`` writes the
 parameters and the state in place, under ``torch.no_grad()``, and returns
 them: the reference's jitted step donates these buffers, so no caller
-reads the old values.  The ZeRO-1 rules (``zero1_spec``,
-``zero1_state_specs``) are PartitionSpec rules and wait for ROADMAP queue
-1, 'Sharding'.
+reads the old values.  On DTensor parameters the moments take the
+parameters' placements, as the reference's jitted step lays them out.
+
+ZeRO-1: :func:`zero1_spec` extends a parameter's spec by sharding its
+largest still-unsharded dim over the data axes, for optimizer moments;
+:func:`zero1_state_specs` applies it to a tree.  They are layout rules for
+the dry run; the trainer does not use them, as the reference's does not.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.params import tree_leaves, tree_map
+from ..sharding.specs import Spec, axis_sizes
 
 
 def _zeros_like(p: torch.Tensor, shape=None) -> torch.Tensor:
+    if isinstance(p, DTensor) and shape is None:  # the parameter's placements
+        return torch.zeros_like(p, dtype=torch.float32)
     return torch.zeros(p.shape if shape is None else shape, dtype=torch.float32,
                        device=p.device)
 
@@ -116,3 +125,30 @@ class Adafactor:
 
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in tree_leaves(tree)))
+
+
+def zero1_spec(spec: Spec, shape: tuple[int, ...], data_axes, sizes: dict) -> Spec:
+    """``spec`` with the largest unsharded dim that the data axes divide
+    sharded over them (ZeRO-1 for optimizer moments); unchanged when a data
+    axis already shards it."""
+    names = data_axes if isinstance(data_axes, tuple) else (data_axes,)
+    total = math.prod(sizes[n] for n in names)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = {n for e in entries for n in (e if isinstance(e, tuple) else (e,))}
+    if used & set(names):
+        return tuple(entries)
+    best, best_dim = -1, -1
+    for i, (dim, s) in enumerate(zip(shape, entries)):
+        if s is None and dim % total == 0 and dim > best:
+            best, best_dim = dim, i
+    if best_dim >= 0:
+        entries[best_dim] = names if len(names) > 1 else names[0]
+    return tuple(entries)
+
+
+def zero1_state_specs(param_specs, params_shapes, mesh, data_axes=("data",)):
+    """:func:`zero1_spec` of every leaf; ``params_shapes`` a tree of tensors
+    (``models.params.abstract_params``), ``mesh`` read for its axis sizes."""
+    sizes = axis_sizes(mesh)
+    return tree_map(lambda p, spec: zero1_spec(spec, tuple(p.shape), data_axes, sizes),
+                    params_shapes, param_specs)

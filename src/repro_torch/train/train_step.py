@@ -13,13 +13,18 @@ accumulation (the port of ``repro.train.train_step``).
 
 The metrics are the reference's: ``loss``, the loss function's (``xent``,
 ``moe_aux``; not with ``grad_accum > 1``, as in the reference) and the
-optimizer's (``grad_norm``).  The optimizer updates in place.
+optimizer's (``grad_norm``), plain tensors.  The optimizer updates in
+place.  On DTensor parameters (under ``sharding.use_mesh``) each gradient
+is redistributed to its parameter's placements (a ``Partial`` gradient of
+a replicated parameter is all-reduced), and the optimizer's moments hold
+those placements too.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models import ModelConfig, get_api
 from ..models.params import tree_leaves, tree_map
@@ -39,10 +44,12 @@ def make_train_step(
         it = iter(leaves)
         live = tree_map(lambda _: next(it), params)
         loss, metrics = api.loss(live, batch, cfg)
-        grads = torch.autograd.grad(loss, leaves)
+        # on DTensor parameters each gradient takes its parameter's layout
+        grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+                 for g, p in zip(torch.autograd.grad(loss, leaves), leaves)]
         it = iter(grads)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_map(
-            lambda _: next(it), params)
+        return _whole(loss.detach()), {k: _whole(v.detach()) for k, v in metrics.items()}, \
+            tree_map(lambda _: next(it), params)
 
     def train_step(params, opt_state, batch):
         if grad_accum == 1:
@@ -51,8 +58,7 @@ def make_train_step(
             if any(v.shape[0] % grad_accum for v in batch.values()):
                 raise ValueError(f"batch does not split into {grad_accum} equal microbatches")
             micro = {k: torch.chunk(v, grad_accum, dim=0) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             losses = []
             for i in range(grad_accum):
                 mb_loss, _, g = value_and_grad(params, {k: parts[i] for k, parts in micro.items()})
@@ -65,12 +71,18 @@ def make_train_step(
         if compress:
             grads, ef = apply_error_feedback(grads, opt_state["ef"])
         new_params, new_opt, om = optimizer.update(grads, opt_state["opt"], params)
+        om = {k: _whole(v) for k, v in om.items()}
         new_state = {"opt": new_opt}
         if compress:
             new_state["ef"] = ef
         return new_params, new_state, {"loss": loss, **metrics, **om}
 
     return train_step
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def batch_to_device(batch: dict, cfg: ModelConfig, device) -> dict:

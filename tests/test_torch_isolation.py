@@ -31,6 +31,8 @@ import repro_torch.configs.qwen3_1p7b, repro_torch.configs.minitron_8b
 import repro_torch.configs.qwen2_72b, repro_torch.configs.qwen1p5_110b
 import repro_torch.configs.deepseek_v3_671b, repro_torch.configs.kimi_k2_1t_a32b
 import repro_torch.models.moe, repro_torch.models.mla, repro_torch.launch.supervisor
+import repro_torch.sharding, repro_torch.sharding.specs, repro_torch.checkpoint.elastic
+import repro_torch.train.pipeline, repro_torch.launch.mesh, repro_torch.models.params
 import importlib.util, pathlib
 for path in sorted(pathlib.Path(sys.argv[1]).glob("*_torch.py")):  # the example twins
     spec = importlib.util.spec_from_file_location(path.stem, path)
