@@ -94,7 +94,18 @@ phase [9]'s bit for bit; then the ``qwen3-1.7b`` smoke train state saved on
 the card after step 1 and restored by ``elastic_restore`` onto a 2-rank
 gloo world on the CPU that the script spawns, as 1x2 and 2x1: every leaf
 bit for bit, the next step's loss held to the card's (rtol 1e-5), with the
-restore, gather and save walls.
+restore, gather and save walls;
+and phase [13], the dry run and roofline, in a process of its own: phase
+[9]'s ``qwen3-1.7b`` train step (4 x 512, float32 weights, AdamW) and serve
+decode step counted on a 1x1 ``cuda`` mesh of fake tensors
+(``launch.dryrun.count_cell``), each as a roofline with the H100's float32
+peak beside phase [9]'s measured step and peak memory (the train step must
+take at least its counted bound, its counted parameter and AdamW-state bytes
+must equal the live state's, and one real step on the card counted by the
+same mode must give the same flops, bytes and collectives); then
+``python -m repro_torch.launch.dryrun --arch qwen3-1.7b`` for ``decode_32k``
+and ``train_4k`` on the 16x16 mesh of a fake 256-rank world, both ``ok``.
+Fake tensors launch no kernel.
 Each kernel is then held against its plain version and timed at its path's
 shapes on its path's inputs (for ``wkv6``, the tensors layer 0 and layer 31
 hand it in the served prefill).  Phase [4] also provisions the quickstart
@@ -3928,6 +3939,186 @@ def sharding_paths(torch, np, dev, kernels: list, dense: dict) -> None:
     log(f"[12] {time.perf_counter() - t0:.1f} s; " + json.dumps(summary, default=str))
 
 
+# ---------------------------------------------------------------------------
+# [13] the dry run and roofline
+# ---------------------------------------------------------------------------
+
+ROOFLINE_TIMEOUT_S = 600
+DRYRUN_CELLS = ("decode_32k", "train_4k")  # qwen3-1.7b at 16x16, [13b]
+
+
+def roofline_main(measured: str, device: str = "cuda") -> int:
+    """[13a] phase [9]'s own programs counted on a 1x1 ``cuda`` mesh (a fake
+    world of one rank): the ``DENSE_ARCH`` train step at TRAIN_BATCH x
+    TRAIN_SEQ (float32 weights and AdamW state, the config as phase [9] runs
+    it) and its serve decode step (DENSE_BATCH rows, a cache of DENSE_PROMPT
+    + DENSE_NEW positions), each as a roofline with the H100's float32
+    peak beside phase [9]'s measurements (``measured``, JSON); then the same
+    count over one real train step on the card, which must equal the fake
+    one.  Run in a process of its own; prints one JSON line last.
+    ``device="cpu"`` rehearses it on the CPU."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_api
+    from repro_torch.models.params import count_params, init_params, tree_bytes
+    from repro_torch.roofline import analysis as ra
+    from repro_torch.roofline.count import count_step
+    from repro_torch.sharding import use_mesh
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import batch_to_device, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase [9]'s float32 products
+    torch.backends.cudnn.allow_tf32 = False
+    got = json.loads(measured)
+    dryrun.fake_world(1)
+    mesh = DeviceMesh(device, torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+    rules = {"batch": ("data",), "groups": ("data",)}
+    cfg = get_config(DENSE_ARCH)
+    api = get_api(cfg)
+    n = count_params(api.decls(cfg))
+    cells = {"train": ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+             "decode": ShapeSpec("decode", DENSE_PROMPT + DENSE_NEW, DENSE_BATCH, "decode")}
+    out = {}
+    for name, shape in cells.items():
+        count, t_build, t_step = dryrun.count_cell(cfg, shape, mesh, rules,
+                                                   param_dtype=torch.float32)
+        roof = ra.analyze(DENSE_ARCH, name, "1x1", 1, count.flops, count.bytes,
+                          count.stats.wire_bytes, ra.model_flops_estimate(cfg, shape, n, n),
+                          dtype="float32")
+        out[name] = {"roofline": roof.row(), "totals": count.totals(),
+                     "argument_bytes": count.argument_bytes, "peak_bytes": count.peak_bytes,
+                     "build_s": t_build, "count_s": t_step}
+    t_c, t_m = out["train"]["roofline"]["t_compute"], out["train"]["roofline"]["t_memory"]
+
+    # one real step on the card, counted by the same mode
+    dev = torch.device(device)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), api.decls(cfg),
+                         torch.float32, dev)
+    opt = AdamW()
+    state = {"opt": opt.init(params)}
+    live_bytes = tree_bytes(params) + tree_bytes(state)
+    batch = batch_to_device(SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)(0), cfg, dev)
+    step = make_train_step(cfg, opt)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with use_mesh(mesh, rules):
+        (_, _, metrics), real = count_step(step, {"params": params, "opt_state": state,
+                                                  "batch": batch}, mesh)
+    sync()
+    out["train"]["real_step"] = {"totals": real.totals(), "s": time.perf_counter() - t0,
+                                 "loss": float(metrics["loss"]),
+                                 "argument_bytes": real.argument_bytes}
+    out["train"]["live_state_bytes"] = live_bytes
+    print(json.dumps(out), flush=True)
+    fake = out["train"]
+    ok = (got["step_ms"] * 1e-3 >= max(t_c, t_m)
+          and fake["argument_bytes"]["params"] + fake["argument_bytes"]["opt_state"] == live_bytes
+          and real.totals() == fake["totals"] and np.isfinite(float(metrics["loss"])))
+    return 0 if ok else 1
+
+
+def dryrun_cells() -> dict:
+    """[13b] ``python -m repro_torch.launch.dryrun --arch DENSE_ARCH --shape
+    <cell>`` for each of DRYRUN_CELLS: the 16x16 production mesh of a fake
+    256-rank world on the ``cuda`` device type, each cell's record read
+    back."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                               DENSE_ARCH, "--shape", shape], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=ROOFLINE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = [x for x in proc.stdout.splitlines() if x.startswith(("[OK]", "[FAIL]", "dry-run"))]
+        for line in lines:
+            log(f"  | {line}")
+        check(proc.returncode == 0, f"the dry run of {shape} failed (rc {proc.returncode}):\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(ROOT / "experiments" / "dryrun_torch" / f"{DENSE_ARCH}__{shape}__16x16.json") as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok" and rec["mesh"] == "16x16" and rec["chips"] == 256,
+              f"{shape}: {rec}")
+        r = rec["roofline"]
+        log(f"  {DENSE_ARCH} {shape} at 16x16 (bf16 peak): t_compute {r['t_compute'] * 1e3:.3f} "
+            f"ms, t_memory {r['t_memory'] * 1e3:.3f} ms, t_collective {r['t_collective'] * 1e3:.3f}"
+            f" ms -> {r['bottleneck']}; MODEL/count flops {r['useful_ratio']:.3f}; collectives "
+            f"{rec['collectives']['count_by_kind']} ({r['coll_bytes_per_chip'] / 1e9:.3f} GB a "
+            f"chip on the wire); args {rec['memory_analysis']['argument_size_in_bytes'] / 1e9:.2f}"
+            f" GB + temps {rec['memory_analysis']['temp_size_in_bytes'] / 1e9:.2f} GB a chip; "
+            f"build {rec['lower_s']} s, counted step {rec['compile_s']} s, {wall:.1f} s in all")
+        out[shape] = {"roofline": r, "collectives": rec["collectives"],
+                      "memory_analysis": rec["memory_analysis"], "wall_s": wall}
+    return out
+
+
+def roofline_paths(torch, dense: dict) -> None:
+    """Phase [13]: [13a] in a process of its own (its fake world cannot meet
+    phase [12]'s), then [13b].  Fake tensors launch no kernel."""
+    import os
+
+    t0 = time.perf_counter()
+    measured = {"step_ms": dense["train"]["step_ms"], "peak_gb": dense["train"]["peak_gb"],
+                "decode_device_ms": dense["serve"]["decode_device_ms_per_step"],
+                "decode_peak_gb": dense["serve"]["peak_gb"]}
+    log(f"[13a] {DENSE_ARCH}: phase [9]'s train step ({TRAIN_BATCH} x {TRAIN_SEQ}, float32 "
+        f"weights and AdamW) and serve decode step ({DENSE_BATCH} rows, a cache of "
+        f"{DENSE_PROMPT + DENSE_NEW}) counted on a 1x1 cuda mesh of fake tensors, then one real "
+        f"train step counted on the card")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                           f"sys.exit(chip_smoke.roofline_main({json.dumps(json.dumps(measured))}))"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=ROOFLINE_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines) and lines[-1].startswith("{"),
+          f"[13a] printed no result (rc {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-6000:]}")
+    res = json.loads(lines[-1])
+    train, decode = res["train"], res["decode"]
+    tr, de = train["roofline"], decode["roofline"]
+    bound_ms = max(tr["t_compute"], tr["t_memory"]) * 1e3
+    counted_args = train["argument_bytes"]["params"] + train["argument_bytes"]["opt_state"]
+    log(f"  train: {train['totals']['flops']:.6g} flops ({tr['t_compute'] * 1e3:.2f} ms at 67 "
+        f"TFLOP/s float32), {train['totals']['bytes']:.6g} bytes ({tr['t_memory'] * 1e3:.2f} ms "
+        f"at 3.35 TB/s), {train['totals']['ops']} ops, no collective -> {tr['bottleneck']}; "
+        f"phase [9]'s median step {measured['step_ms']:.1f} ms ({measured['step_ms'] / bound_ms:.2f}"
+        f" x the bound); counted peak {train['peak_bytes'] / 1e9:.2f} GB against phase [9]'s "
+        f"max_memory_allocated {measured['peak_gb']:.2f} GB; arguments {train['argument_bytes']} "
+        f"(parameters and AdamW state {counted_args} B, the live state's "
+        f"{train['live_state_bytes']} B); counted in {train['count_s']:.1f} s")
+    log(f"  the real step on the card (loss {train['real_step']['loss']:.6f}, "
+        f"{train['real_step']['s']:.2f} s under the count): {train['real_step']['totals']}")
+    log(f"  decode: {decode['totals']['flops']:.6g} flops ({de['t_compute'] * 1e3:.4f} ms), "
+        f"{decode['totals']['bytes']:.6g} bytes ({de['t_memory'] * 1e3:.4f} ms) -> "
+        f"{de['bottleneck']}; phase [9]'s step on the card {measured['decode_device_ms']:.2f} ms "
+        f"(not held to the bound: L2 serves re-read operands); counted peak "
+        f"{decode['peak_bytes'] / 1e9:.2f} GB against {measured['decode_peak_gb']:.2f} GB")
+    check(measured["step_ms"] >= bound_ms,
+          f"the train step ({measured['step_ms']} ms) beat its counted bound ({bound_ms} ms)")
+    check(counted_args == train["live_state_bytes"],
+          f"counted argument bytes {counted_args} against the live state's "
+          f"{train['live_state_bytes']}")
+    check(train["real_step"]["totals"] == train["totals"],
+          f"the real step's count {train['real_step']['totals']} against the fake one's "
+          f"{train['totals']}")
+    check(proc.returncode == 0, f"[13a] returned {proc.returncode}:\n{proc.stderr[-3000:]}")
+    log("[13b] the dry run at 16x16 on a fake 256-rank world, the cuda device type")
+    cells = dryrun_cells()
+    log(f"[13] {time.perf_counter() - t0:.1f} s; " + json.dumps(
+        {"13a": res, "13b": cells}, default=str))
+
+
 def run(torch, np) -> dict:
     from repro_torch.kernels import build
 
@@ -3966,6 +4157,9 @@ def run(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     sharding_paths(torch, np, dev, kernels, dense)
+    gc.collect()
+    torch.cuda.empty_cache()
+    roofline_paths(torch, dense)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

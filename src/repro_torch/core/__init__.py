@@ -19,18 +19,21 @@ from .types import (
     AuctionProblem,
     AuctionResult,
     CSRAuctionProblem,
+    CSRDemandAux,
     MarketBook,
     ResourcePool,
     SparseAuctionProblem,
     SparseAuctionResult,
     as_device,
     bundle_cluster_costs,
+    csr_demand_aux,
     csr_from_padded,
     csr_padded_views,
     csr_problem_from_arrays,
     densify,
     operator_supply_bids,
     pack_bids,
+    pack_bids_csr,
     pack_bids_sparse,
     pad_users,
     padded_from_csr,
@@ -103,11 +106,11 @@ from .state import economy_state, load_economy_state
 from .provisioner import DeviceGrant, grant_to_mesh, grants_from_allocation, plan_mesh_shape
 
 __all__ = [
-    "AuctionProblem", "AuctionResult", "CSRAuctionProblem", "MarketBook", "ResourcePool",
-    "SparseAuctionProblem", "SparseAuctionResult",
-    "as_device", "bundle_cluster_costs", "csr_from_padded", "csr_padded_views",
-    "csr_problem_from_arrays", "densify", "operator_supply_bids", "pack_bids",
-    "pack_bids_sparse", "pad_users", "padded_from_csr", "sparse_problem_from_arrays",
+    "AuctionProblem", "AuctionResult", "CSRAuctionProblem", "CSRDemandAux", "MarketBook",
+    "ResourcePool", "SparseAuctionProblem", "SparseAuctionResult",
+    "as_device", "bundle_cluster_costs", "csr_demand_aux", "csr_from_padded",
+    "csr_padded_views", "csr_problem_from_arrays", "densify", "operator_supply_bids",
+    "pack_bids", "pack_bids_csr", "pack_bids_sparse", "pad_users", "padded_from_csr", "sparse_problem_from_arrays",
     "sparse_supply_scale", "sparsify",
     "CURVE_FAMILIES", "DEFAULT_WEIGHTING", "ExpWeighting", "LogisticWeighting",
     "PiecewisePowerWeighting", "reputation_weighted_reserve", "reserve_prices",

@@ -34,8 +34,10 @@ from .types import (
     AuctionProblem,
     AuctionResult,
     CSRAuctionProblem,
+    CSRDemandAux,
     SparseAuctionProblem,
     SparseAuctionResult,
+    csr_demand_aux,
     csr_padded_views,
     pad_users,
     padded_from_csr,
@@ -154,16 +156,31 @@ def blocked_demand_fn(num_blocks: int = 8) -> DemandFn:
     return fn
 
 
-def csr_proxy_demand(problem: CSRAuctionProblem, prices: torch.Tensor, aux=None):
-    """O(nnz) demand on the flat CSR streams, in the plain segment form:
-    per-element products, a segment sum into bundle costs, and the chosen
-    bundles' elements scattered into z (float-close)."""
+def csr_proxy_demand(problem: CSRAuctionProblem, prices: torch.Tensor,
+                     aux: CSRDemandAux | None = None):
+    """O(nnz) demand on the flat CSR streams → (z, chosen, active).
+
+    Without ``aux``, the plain segment form: per-element products, a segment
+    sum into bundle costs, and the chosen bundles' elements added into z.
+    With ``aux`` (:class:`~repro_torch.core.types.CSRDemandAux`) the costs
+    fold as ``k_bound`` prefix-slice adds over the count-sorted k-major
+    stream, and z sums pool-major in ``chunk``-wide tiles, only the chunk
+    sums added into z.  The costs, and so the selection, are the same bit
+    for bit either way (each bundle's terms add in k order); z is
+    float-close (it reassociates within a pool)."""
     num_users, num_bundles = problem.bundle_mask.shape
     dev = problem.idx.device
     prices = prices.float()
     costs = torch.zeros(num_users * num_bundles, dtype=torch.float32, device=dev)
-    if problem.nnz:
+    if problem.nnz and aux is None:
         costs.index_add_(0, problem.rows.long(), problem.val * prices[problem.idx.long()])
+    elif problem.nnz:
+        prod = aux.kmaj_val * prices[aux.kmaj_idx.long()]
+        off = 0
+        for m in aux.m_k:
+            costs[:m] += prod[off:off + m]
+            off += m
+        costs = costs[aux.inv_count_perm.long()]
     costs = torch.where(problem.bundle_mask, costs.reshape(num_users, num_bundles), float("inf"))
     pi = problem.pi
     if pi.ndim == 1:
@@ -181,11 +198,16 @@ def csr_proxy_demand(problem: CSRAuctionProblem, prices: torch.Tensor, aux=None)
         rows = problem.rows.long()
         kept = torch.where(chosen.long()[rows // num_bundles] == rows % num_bundles,
                            problem.val, 0.0)
-        z.index_add_(0, problem.idx.long(), kept)
+        if aux is None:
+            z.index_add_(0, problem.idx.long(), kept)
+        else:
+            chunk_sums = torch.where(aux.pool_live, kept[aux.pool_pos.long()], 0.0)
+            z.index_add_(0, aux.chunk_pool.long(), chunk_sums.reshape(-1, aux.chunk).sum(1))
     return z, chosen, active
 
 
 csr_proxy_demand.csr_signature = True  # type: ignore[attr-defined]
+csr_proxy_demand.csr_wants_aux = True  # type: ignore[attr-defined]
 
 
 def _csr_settle(problem: CSRAuctionProblem, prices, chosen, active):
@@ -417,6 +439,7 @@ def clock_auction(
     start_prices: torch.Tensor,
     config: ClockConfig = ClockConfig(),
     demand_fn: DemandFn | None = None,
+    csr_aux: CSRDemandAux | None = None,
 ) -> AuctionResult | SparseAuctionResult:
     """Run Algorithm 1 to convergence (or ``max_rounds``) and settle.
 
@@ -426,7 +449,10 @@ def clock_auction(
     :func:`ops.sparse_bid_demand_fn`): the kernel on CUDA tensors, its plain
     version on CPU tensors.  A CSR book with a padded-signature demand fn
     (the settlement family) runs on its exact padded reconstruction, so it
-    settles bit-identically to the padded book.
+    settles bit-identically to the padded book.  A CSR demand fn that
+    wants the scatter-free layouts (``csr_wants_aux``, as
+    :func:`csr_proxy_demand`) gets ``csr_aux``, built here by
+    :func:`~repro_torch.core.types.csr_demand_aux` when None.
     """
     if isinstance(problem, AuctionProblem):
         return _clock_auction_dense(problem, start_prices, config,
@@ -444,7 +470,11 @@ def clock_auction(
             return _clock_auction_padded(padded, start_prices, config, demand_fn)
         if not getattr(demand_fn, "csr_signature", False):
             raise TypeError(f"demand_fn {demand_fn} does not match the CSR problem encoding")
-        return _clock_auction_csr_native(problem, start_prices, config, demand_fn)
+        if csr_aux is None and getattr(demand_fn, "csr_wants_aux", False):
+            # only fns that read the scatter-free layouts pay the pack-time
+            # argsorts (the kernel adapter's z never scatters)
+            csr_aux = csr_demand_aux(problem)
+        return _clock_auction_csr_native(problem, start_prices, config, demand_fn, csr_aux)
     if not isinstance(problem, SparseAuctionProblem):
         raise TypeError(
             f"clock_auction takes AuctionProblem, SparseAuctionProblem or CSRAuctionProblem, "
@@ -506,14 +536,15 @@ def _clock_auction_padded(problem, start_prices, config, demand_fn) -> SparseAuc
     )
 
 
-def _clock_auction_csr_native(problem, start_prices, config, demand_fn) -> SparseAuctionResult:
+def _clock_auction_csr_native(problem, start_prices, config, demand_fn,
+                              aux=None) -> SparseAuctionResult:
     if config.break_ties:
         problem = dataclasses.replace(problem, pi=_apply_tie_jitter(problem.pi, config))
     rounds, prices = _run_clock(
-        lambda p: demand_fn(problem, p)[0], start_prices, config,
+        lambda p: demand_fn(problem, p, aux)[0], start_prices, config,
         problem.base_cost, problem.supply_scale,
     )
-    z, chosen, active = demand_fn(problem, prices)
+    z, chosen, active = demand_fn(problem, prices, aux)
     alloc_idx, alloc_val, payments = _csr_settle(problem, prices, chosen, active)
     return SparseAuctionResult(
         prices=prices, alloc_idx=alloc_idx, alloc_val=alloc_val, chosen_bundle=chosen,

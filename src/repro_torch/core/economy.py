@@ -250,6 +250,12 @@ class AgentPopulation:
         return AgentPopulation(names=names, **kw)
 
 
+# The belief-cost fold shared by the trader path, the buy path and the
+# bidder policies, :func:`repro_torch.core.types.bundle_cluster_costs`,
+# under the reference's historical name.
+believed_bundle_costs = bundle_cluster_costs
+
+
 def _claw_to_capacity_loop(
     placed: np.ndarray,
     req: np.ndarray,

@@ -321,6 +321,89 @@ def csr_problem_from_arrays(
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class CSRDemandAux:
+    """Pack-time layouts that make one CSR proxy round scatter-free (the
+    reference's ``CSRDemandAux``, array for array).
+
+    * bundle costs: bundles sorted by nnz, descending; pass ``k`` touches
+      exactly the first ``m_k[k]`` sorted bundles, so the K-term cost fold
+      is ``k_bound`` prefix-slice adds over the k-major element stream
+      (``kmaj_idx``/``kmaj_val``), in k order;
+    * excess demand z: elements sorted by pool, each pool's run padded to a
+      multiple of ``chunk``; the selected values are gathered into that
+      layout, summed a chunk at a time, and only the chunk sums are added
+      into z.
+
+    Both are data layout only: the costs, and so the selection, are the
+    plain path's bit for bit; z reassociates within a pool (float-close).
+    """
+
+    kmaj_idx: torch.Tensor  # (nnz,) int32: k-major, count-sorted element stream
+    kmaj_val: torch.Tensor  # (nnz,) float32
+    inv_count_perm: torch.Tensor  # (U·B,) int32: sorted-bundle position of each bundle
+    pool_pos: torch.Tensor  # (chunks·chunk,) int32: flat element position, pool-major
+    pool_live: torch.Tensor  # (chunks·chunk,) bool: False on a pool run's padding
+    chunk_pool: torch.Tensor  # (chunks,) int32: the pool of each chunk
+    m_k: tuple  # bundles with nnz > k, for k in range(k_bound)
+    chunk: int  # z chunk width
+
+
+def csr_demand_aux(problem: CSRAuctionProblem, chunk: int = 128) -> CSRDemandAux:
+    """The scatter-free demand layouts of a CSR book, built on the host in
+    numpy (once a packed book, beside the packer) and put on the book's
+    device."""
+    dev = problem.idx.device
+    idx = problem.idx.cpu().numpy()
+    val = problem.val.cpu().numpy()
+    offsets = problem.offsets.cpu().numpy().astype(np.int64)
+    counts = offsets[1:] - offsets[:-1]  # (U·B,)
+    ub = counts.shape[0]
+    nnz = idx.shape[0]
+
+    perm = np.argsort(-counts, kind="stable")  # bundles by nnz, descending
+    inv_perm = np.empty_like(perm)
+    inv_perm[perm] = np.arange(ub)
+    sorted_counts = counts[perm]
+    m_k = tuple(int((sorted_counts > k).sum()) for k in range(problem.k_bound))
+    kmaj_idx = np.concatenate(
+        [idx[offsets[:-1][perm[: m_k[k]]] + k] for k in range(problem.k_bound)]
+        or [np.zeros(0, np.int32)]
+    )
+    kmaj_val = np.concatenate(
+        [val[offsets[:-1][perm[: m_k[k]]] + k] for k in range(problem.k_bound)]
+        or [np.zeros(0, np.float32)]
+    )
+
+    pool_order = np.argsort(idx, kind="stable")
+    pool_counts = np.bincount(idx, minlength=problem.num_resources)
+    pool_chunks = (pool_counts + chunk - 1) // chunk
+    n_chunks = int(pool_chunks.sum())
+    pool_pos = np.zeros(max(n_chunks, 1) * chunk, np.int32)
+    pool_live = np.zeros(max(n_chunks, 1) * chunk, bool)
+    chunk_pool = np.repeat(np.arange(problem.num_resources), pool_chunks).astype(np.int32)
+    if nnz:
+        sorted_pools = idx[pool_order]
+        elem_off = np.zeros(problem.num_resources + 1, np.int64)
+        elem_off[1:] = np.cumsum(pool_counts)
+        write_off = np.zeros(problem.num_resources + 1, np.int64)
+        write_off[1:] = np.cumsum(pool_chunks) * chunk
+        rank = np.arange(nnz) - elem_off[sorted_pools]
+        wpos = write_off[sorted_pools] + rank
+        pool_pos[wpos] = pool_order.astype(np.int32)
+        pool_live[wpos] = True
+    return CSRDemandAux(
+        kmaj_idx=_tensor(kmaj_idx.astype(np.int32), dev),
+        kmaj_val=_tensor(kmaj_val.astype(np.float32), dev),
+        inv_count_perm=_tensor(inv_perm.astype(np.int32), dev),
+        pool_pos=_tensor(pool_pos, dev),
+        pool_live=_tensor(pool_live, dev),
+        chunk_pool=_tensor(chunk_pool, dev),
+        m_k=m_k,
+        chunk=chunk,
+    )
+
+
 def sparse_supply_scale(idx: np.ndarray, val: np.ndarray, num_res: int) -> np.ndarray:
     """|q| volume per pool from (idx, val) pairs, folded in (u, b, k) order in
     float32 and floored at 1."""
@@ -424,6 +507,70 @@ def sparse_problem_from_arrays(
         base_cost=_tensor(np.asarray(base_cost, np.float32), dev),
         supply_scale=_tensor(np.asarray(supply_scale, np.float32), dev),
         num_resources=num_res,
+    )
+
+
+def pack_bids_csr(
+    bundle_lists: Sequence[Sequence],
+    pis: Sequence[float] | np.ndarray,
+    base_cost: np.ndarray,
+    supply_scale: np.ndarray | None = None,
+    device: str | torch.device = "cuda",
+) -> CSRAuctionProblem:
+    """Pack per-user XOR bundle lists straight into a CSRAuctionProblem.
+
+    The inputs of :func:`pack_bids_sparse` (dense ``(R,)`` vectors or
+    ``(idx, val)`` pairs); the flat streams are assembled directly, O(nnz)
+    host memory, never the ``(U, B, K_max)`` padded intermediate.  Each
+    bundle is trimmed to its last live ``(idx, val) != (0, 0)`` entry (the
+    rule of :func:`csr_from_padded`), while ``k_bound`` stays the densest
+    bundle's untrimmed length, so :func:`csr_padded_views` gives back the
+    padded pack of the same lists and the book settles bit-identically.
+    """
+    num_users = len(bundle_lists)
+    num_res = int(np.asarray(base_cost).shape[0])
+    parts_i: list[np.ndarray] = []
+    parts_v: list[np.ndarray] = []
+    entries: list[tuple[int, int, int]] = []  # (user, bundle, count)
+    max_b = 1
+    k_bound = 1
+    for u, bl in enumerate(bundle_lists):
+        max_b = max(max_b, len(bl))
+        for b, q in enumerate(bl):
+            if isinstance(q, tuple):
+                ii, vv = q
+                ii = np.asarray(ii, np.int32)
+                if ii.size and (ii.min() < 0 or ii.max() >= num_res):
+                    raise ValueError(
+                        f"bundle pool indices must be in [0, {num_res}), got "
+                        f"[{ii.min()}, {ii.max()}]"
+                    )
+                order = np.argsort(ii, kind="stable")
+                ii = ii[order]
+                vv = np.asarray(vv, np.float32)[order]
+            else:
+                q = np.asarray(q)
+                ii = np.flatnonzero(q).astype(np.int32)
+                vv = q[ii].astype(np.float32)
+            k_bound = max(k_bound, len(ii))
+            live = np.flatnonzero((ii != 0) | (vv != 0))
+            n = int(live[-1]) + 1 if live.size else 0
+            parts_i.append(ii[:n])
+            parts_v.append(vv[:n])
+            entries.append((u, b, n))
+    counts = np.zeros((num_users, max_b), np.int64)
+    mask = np.zeros((num_users, max_b), bool)
+    for u, b, n in entries:
+        counts[u, b] = n
+        mask[u, b] = True
+    offsets = np.zeros(num_users * max_b + 1, np.int32)
+    offsets[1:] = np.cumsum(counts.reshape(-1))
+    flat_idx = (np.concatenate(parts_i) if parts_i else np.zeros(0, np.int32)).astype(np.int32)
+    flat_val = (np.concatenate(parts_v) if parts_v else np.zeros(0, np.float32)).astype(
+        np.float32)
+    return csr_problem_from_arrays(
+        flat_idx, flat_val, offsets, mask, np.asarray(pis, np.float32), base_cost,
+        supply_scale=supply_scale, k_bound=k_bound, device=device,
     )
 
 
@@ -858,6 +1005,40 @@ class MarketBook:
             pi=dev["pi"], base_cost=_upload(self.base_cost, self.device),
             supply_scale=_upload(self.supply_scale(), self.device),
             num_resources=self.num_resources,
+        )
+
+    def _static_layout(self) -> tuple[np.ndarray, np.ndarray]:
+        """(rows, offsets) of the fixed-K layout: bundle ``i`` owns elements
+        ``[i·K, (i+1)·K)``."""
+        ub, k = self.rows_cap * self.num_bundles, self.k_bound
+        offsets = (np.arange(ub + 1, dtype=np.int64) * k).astype(np.int32)
+        return np.repeat(np.arange(ub, dtype=np.int32), k), offsets
+
+    def problem(self) -> CSRAuctionProblem:
+        """A snapshot of the host arrays as a CSRAuctionProblem (a fresh
+        upload to the book's device)."""
+        rows, offsets = self._static_layout()
+        return CSRAuctionProblem(
+            idx=_upload(self.idx, self.device), val=_upload(self.val, self.device),
+            rows=_upload(rows, self.device), offsets=_upload(offsets, self.device),
+            bundle_mask=_upload(self.mask, self.device), pi=_upload(self.pi, self.device),
+            base_cost=_upload(self.base_cost, self.device),
+            supply_scale=_upload(self.supply_scale(), self.device),
+            num_resources=self.num_resources, k_bound=self.k_bound,
+        )
+
+    def device_problem(self) -> CSRAuctionProblem:
+        """The device mirror as a CSRAuctionProblem, synced by the rows
+        written since the last sync (:meth:`_sync_device`); the streams are
+        the mirror's own tensors, no copy."""
+        dev = self._sync_device()
+        rows, offsets = self._static_layout()
+        return CSRAuctionProblem(
+            idx=dev["idx"], val=dev["val"], rows=_upload(rows, self.device),
+            offsets=_upload(offsets, self.device), bundle_mask=dev["mask"], pi=dev["pi"],
+            base_cost=_upload(self.base_cost, self.device),
+            supply_scale=_upload(self.supply_scale(), self.device),
+            num_resources=self.num_resources, k_bound=self.k_bound,
         )
 
     # -- full-repack oracle -------------------------------------------------

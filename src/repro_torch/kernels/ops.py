@@ -421,11 +421,21 @@ def wkv6(
     Float-close to :func:`.ref.wkv6_chunked`, which CPU tensors run.  The
     kernel takes chunks of at most 32 tokens and K ≤ 64 (one tile), any V.
     DTensor inputs run :func:`_sharded_wkv6` on each rank's heads.
+
+    The call is the custom op ``repro_torch::wkv6``: its fake version gives
+    the output shapes alone, so a step runs on fake tensors (the dry run),
+    and its gradient is the plain version's, recomputed (the kernel has no
+    backward, as the reference's Pallas kernel has none).
     """
     if is_dtensor(r):
         return _sharded_wkv6(r, k, v, w, u, state, chunk, plain)
-    if r.device.type == "cpu" or plain:
-        return ref.wkv6_chunked(r, k, v, w, u, state, chunk)
+    if r.device.type != "cpu" and not plain:
+        _wkv6_check(r, k, v, w, u, state, chunk)
+    return _wkv6_op(r, k, v, w, u, state, chunk, plain)
+
+
+def _wkv6_check(r, k, v, w, u, state, chunk) -> None:
+    """Raise unless the kernel takes these inputs and a GPU is visible."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on CPU or CUDA tensors, got {r.device}")
     if r.ndim != 4 or v.ndim != 4:
@@ -448,16 +458,60 @@ def wkv6(
     if min(chunk, t) > WKV6_MAX_CHUNK or kd > WKV6_MAX_K:
         raise ValueError(f"wkv6: the kernel takes chunks of at most {WKV6_MAX_CHUNK} tokens "
                          f"and K <= {WKV6_MAX_K}, got {min(chunk, t)} and K = {kd}")
-    stream = _stream(dev)
+    _stream(dev)
+
+
+@torch.library.custom_op("repro_torch::wkv6", mutates_args=())
+def _wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor, state: torch.Tensor | None, chunk: int, plain: bool
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    if r.device.type == "cpu" or plain:
+        return ref.wkv6_chunked(r, k, v, w, u, state, chunk)
+    _wkv6_check(r, k, v, w, u, state, chunk)
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    dev = r.device
     o = torch.empty((b, t, h, vd), dtype=torch.float32, device=dev)
     s_out = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)
     _launch(
         "wkv6", "wkv6",
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), b, t, h, kd, vd, min(chunk, t),
-        int(r.dtype == torch.bfloat16), o.data_ptr(), s_out.data_ptr(), stream,
+        int(r.dtype == torch.bfloat16), o.data_ptr(), s_out.data_ptr(), _stream(dev),
     )
     return o, s_out
+
+
+@_wkv6_op.register_fake
+def _wkv6_fake(r, k, v, w, u, state, chunk, plain):
+    *lead, h, kd = r.shape  # (B, T) or (T,)
+    vd = v.shape[-1]
+    o = r.new_empty((*lead, h, vd), dtype=torch.float32)
+    return o, r.new_empty((*lead[:-1], h, kd, vd), dtype=torch.float32)
+
+
+def _wkv6_setup(ctx, inputs, output):
+    r, k, v, w, u, state, chunk, _ = inputs
+    ctx.save_for_backward(r, k, v, w, u, state)
+    ctx.chunk = chunk
+    ctx.set_materialize_grads(False)
+
+
+def _wkv6_backward(ctx, grad_o, grad_state):
+    """The plain version's gradient, through autograd over a recompute."""
+    leaves = [None if t is None else t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in leaves if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        outs = ref.wkv6_chunked(*leaves, ctx.chunk)
+    pairs = [(o, g) for o, g in zip(outs, (grad_o, grad_state)) if g is not None]
+    grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                     allow_unused=True) if pairs and wanted else ())
+    return (*(next(grads, None) if t is not None and t.requires_grad else None
+              for t in leaves), None, None)
+
+
+_wkv6_op.register_autograd(_wkv6_backward, setup_context=_wkv6_setup)
 
 
 def is_dtensor(t) -> bool:
@@ -738,28 +792,43 @@ def ordered_rows_add(
     scans the index once a (target, column tile)), "smem" (a one-CTA stable
     partition in shared memory, then the fold) or "sort" (past
     ROWS_SMEM_MAX rows: :func:`rows_sort_partition`, then the fold).
-    Nothing synchronises, so a call records into a CUDA graph.
+    Nothing synchronises, so a call records into a CUDA graph.  The call is
+    the custom op ``repro_torch::ordered_rows_add``, which mutates ``out``;
+    its fake version does nothing, so a step runs on fake tensors (the dry
+    run).
     """
     if out.dtype not in _ROWS_DTYPES or source.dtype != out.dtype:
         raise TypeError(f"ordered_rows_add: out and source of one dtype in float32, float64 or "
                         f"bfloat16, got {out.dtype} and {source.dtype}")
     if index.dtype.is_floating_point or index.dtype.is_complex or index.dtype == torch.bool:
         raise TypeError(f"ordered_rows_add: an integer index, got {index.dtype}")
-    n, e = out.shape[0], index.shape[0]
+    e = index.shape[0]
     if index.ndim != 1 or tuple(source.shape) != (e,) + tuple(out.shape[1:]):
         raise ValueError(f"ordered_rows_add: index (E,) and source (E, ...) rows of out's "
                          f"{tuple(out.shape[1:])}, got {tuple(index.shape)} and "
                          f"{tuple(source.shape)}")
+    _ordered_rows_add_op(out, index, source, plain)
+    return out
+
+
+@torch.library.custom_op("repro_torch::ordered_rows_add", mutates_args=("out",))
+def _ordered_rows_add_op(out: torch.Tensor, index: torch.Tensor, source: torch.Tensor,
+                         plain: bool) -> None:
     if out.device.type == "cpu" or plain:
-        return ref.ordered_rows_add(out, index, source)
+        ref.ordered_rows_add(out, index, source)
+        return
     call = rows_args(out, index, source)
     if call is None:
-        return out
+        return
     plan, args, (index, _, scratch) = call
     if plan.route == "sort":
-        rows_sort_partition(index, n, scratch)
+        rows_sort_partition(index, out.shape[0], scratch)
     _launch("ordered_rows", "ordered_rows_add", *args)
-    return out
+
+
+@_ordered_rows_add_op.register_fake
+def _ordered_rows_add_fake(out, index, source, plain):
+    return None
 
 
 class _OrderedGather(torch.autograd.Function):

@@ -58,8 +58,17 @@ def attn_decls(
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``bsd,dnh->bsnh``."""
+    """``bsd,dnh->bsnh``.  On a mesh with a dim that does not divide the n
+    heads the product runs on each rank's rows of ``x`` with ``w`` whole
+    (``sharding.specs.local_apply``): DTensor may shard the product's n·h
+    columns over that dim, and then cannot unflatten them, nor their
+    gradient, into (n, h)."""
     d, n, h = w.shape
+    if is_dtensor(w) and any(n % s for s in w.device_mesh.shape):
+        B, S = x.shape[:2]
+        rows = {0: "batch", 1: "seq"}
+        return local_apply(lambda xl, wl: _project(xl, wl), [x, w], [rows, {}], [rows],
+                           [(B, S, n, h)])
     return matmul(x, w.reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
 
 
@@ -211,8 +220,11 @@ def local_heads(core, q, k, v, mask, **kw):
     the batch has no DTensor strategy (torch 2.11).  The keys and values
     follow the query heads where the mesh splits both alike; else each
     rank takes whole the key/value head of each of its query heads.  A
-    sequence-sharded KV cache is gathered whole."""
+    decode over a sequence-sharded KV cache runs on each rank's slice of
+    the sequence instead (:func:`_seq_sharded_decode`)."""
     mesh = q.device_mesh
+    if kw.get("grouped") and any(isinstance(p, Shard) and p.dim == 1 for p in k.placements):
+        return _seq_sharded_decode(q, k, v, mask)
     B, S, H, _ = q.shape
     KVH = k.shape[2]
     heads = [i for i, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 2]
@@ -231,6 +243,42 @@ def local_heads(core, q, k, v, mask, **kw):
             return core(ql, kl.index_select(2, idx), vl.index_select(2, idx), ml, **kw)
         kv = b
     return local_apply(fn, [q, k, v, mask], [bh, kv, kv, b], [bh], [(B, S, H, v.shape[-1])])
+
+
+def _seq_sharded_decode(q, k, v, keep):
+    """Grouped decode attention over a KV cache sharded along its sequence,
+    as GSPMD partitions the reference's (flash-decode): the queries are
+    replicated over the mesh dims that shard the sequence, each rank scores
+    its slice of the cache, and the softmax's max and sum and the weighted
+    values are all-reduced over those dims, so no rank gathers the cache."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = k.device_mesh
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    g = H // KVH
+    seq = [i for i, p in enumerate(k.placements) if isinstance(p, Shard) and p.dim == 1]
+
+    def reduce(t, op):
+        for i in seq:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return funcol.wait_tensor(t) if seq else t
+
+    def fn(kl, vl, ql, ml):
+        b, s = ql.shape[:2]
+        qg = ql.reshape(b, s, KVH, g, hd)
+        logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), kl.float()) * (hd**-0.5)
+        if ml is not None:
+            logits = torch.where(ml[:, None, None, :, :], logits, NEG_INF)
+        m = reduce(logits.amax(dim=-1, keepdim=True), "max")
+        e = torch.exp(logits - m)
+        w = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(vl.dtype)
+        out = torch.einsum("bkgst,btkh->bskgh", w.float(), vl.float())
+        return reduce(out, "sum").reshape(b, s, H, hd).to(vl.dtype)
+
+    bt = {0: "batch", 1: "seq"}
+    return local_apply(fn, [k, v, q, keep], [bt, bt, {0: "batch"}, {0: "batch", 2: "seq"}],
+                       [{0: "batch"}], [(B, S, H, v.shape[-1])])
 
 
 def attention(

@@ -167,6 +167,9 @@ def recurrent_block(
     xx = shard(matmul(x, p["wx"]), "batch", "seq", "lru")
     xx, conv_tail = _conv1d(xx, p["conv_w"], p["conv_b"], state["conv"] if state else None)
     h, lru_last = rg_lru(xx.float(), p, g.c_scale, state["lru"] if state else None)
+    # the scan's strided slices and interleaves can leave the sequence
+    # sharded, which the flattening product below cannot take
+    h = shard(h, "batch", "seq", "lru")
     out = matmul((h * y).to(x.dtype), p["wo"])
     return out, {"conv": conv_tail.to(x.dtype), "lru": lru_last}
 
@@ -233,6 +236,6 @@ def griffin_layer(
     else:
         t_out, _ = attention(h, p["attn"], cfg, q_pos, causal=True, window=cfg.griffin.window)
         new_state = None
-    x = x + t_out
+    x = shard(x + t_out, "batch", "seq", "act_embed")
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + glu(h, p["mlp"], act="gelu"), new_state
+    return shard(x + glu(h, p["mlp"], act="gelu"), "batch", "seq", "act_embed"), new_state

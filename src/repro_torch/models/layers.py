@@ -21,7 +21,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops
 from ..sharding import shard
-from ..sharding.specs import as_dtensor, from_local, shard_offsets
+from ..sharding.specs import as_dtensor, from_local, logical, placements, shard_offsets
 from .params import ParamDecl
 
 
@@ -100,14 +100,26 @@ def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(x: torch.Tensor, wout: torch.Tensor) -> torch.Tensor:
+    """``x @ wout`` (d_model, vocab).  A DTensor head is laid out whole on
+    d_model and sharded over vocab first (unevenly where the vocabulary does
+    not divide), so its gradient comes back in the head's own layout: a tied
+    embedding's two gradients, the head's and the lookup's, then meet in one
+    layout (torch 2.11 cannot add a partial sum to a sharded one)."""
+    if isinstance(wout, DTensor):
+        want = placements((None, logical("vocab")[0]), wout.device_mesh)
+        if tuple(wout.placements) != want:
+            wout = wout.redistribute(wout.device_mesh, want)
     return matmul(x, wout)
 
 
 def label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """``lf[..., labels]`` (the logit of each position's label).  On
     vocab-sharded DTensor logits each rank gathers the labels in its own
-    vocab range (zeros for the rest) and the result is ``Partial``, the
-    reference's one-hot product without the one-hot."""
+    vocab range (zeros for the rest) and the ranks' parts are summed, the
+    reference's one-hot product without the one-hot.  The sum is taken
+    here, over one value a position, so the gradient comes back whole: a
+    ``Partial`` result left to later ops may get its gradient sharded, which
+    torch 2.11 cannot turn back into a partial sum."""
     if not isinstance(lf, DTensor):
         return torch.gather(lf, -1, labels[..., None])[..., 0]
     mesh, last = lf.device_mesh, lf.ndim - 1
@@ -120,7 +132,8 @@ def label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     keep = (idx >= 0) & (idx < local[last])
     val = torch.gather(lf.to_local(), -1, torch.where(keep, idx, 0)[..., None])[..., 0]
     out_pl = [Partial() if isinstance(p, Shard) and p.dim == last else p for p in pl]
-    return from_local(torch.where(keep, val, 0.0), mesh, out_pl, lf.shape[:-1])
+    part = from_local(torch.where(keep, val, 0.0), mesh, out_pl, lf.shape[:-1])
+    return part.redistribute(mesh, [Replicate() if p.is_partial() else p for p in out_pl])
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

@@ -71,7 +71,10 @@ def _ddlerp(x: torch.Tensor, xx: torch.Tensor, p: dict) -> list[torch.Tensor]:
     """RWKV-6 data-dependent token-shift interpolation → 5 mixed streams."""
     B, S, D = x.shape
     base = x + xx * p["maa_x"].to(x.dtype)
-    lora = torch.tanh(matmul(base, p["maa_w1"]).float()).reshape(B, S, 5, MAA_LORA)
+    # the 5 streams' LoRA whole on each rank: a shard of its 5·32 columns
+    # does not split into the 5 streams
+    lora = shard(torch.tanh(matmul(base, p["maa_w1"]).float()), "batch", "seq", None)
+    lora = lora.reshape(B, S, 5, MAA_LORA)
     delta = torch.einsum("bsfk,fkd->fbsd", lora, p["maa_w2"].float()).to(x.dtype)
     mix = p["maa_wkvrg"].to(x.dtype)  # (5, D)
     return [x + xx * (mix[i] + delta[i]) for i in range(5)]
@@ -169,10 +172,10 @@ def rwkv_block(
     attn_out, tm_shift, wkv = time_mix(
         h, p["tm"], cfg, shift_prev=tm_prev, wkv_state=wkv_prev, chunk=chunk
     )
-    x = x + attn_out
+    x = shard(x + attn_out, "batch", "seq", "act_embed")
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     ff_out, cm_shift = channel_mix(h, p["cm"], cfg, shift_prev=cm_prev)
-    x = x + ff_out
+    x = shard(x + ff_out, "batch", "seq", "act_embed")
     return x, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv}
 
 

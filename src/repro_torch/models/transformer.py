@@ -32,7 +32,7 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from ..core.types import as_device
-from ..sharding import shard
+from ..sharding import replicate, shard
 from .attention import attention, attn_decls
 from .config import ModelConfig
 from .griffin import griffin_layer, griffin_layer_decls
@@ -164,7 +164,10 @@ def _attn_mlp_block(x, lp, cfg: ModelConfig, q_pos, use_moe: bool = False):
     """The block's output and its MoE aux loss (a float32 0 for a dense MLP)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a, _ = _attend(h, lp, cfg, q_pos)
-    x = x + a
+    # the residual stream whole across the model axis (here and in every
+    # family's blocks): a partial sum left in it would reach the MLP, whose
+    # product DTensor then runs on every rank with the weight gathered whole
+    x = shard(x + a, "batch", "seq", "act_embed")
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if use_moe:
         m, aux = moe_block(h, lp["mlp"], cfg)
@@ -273,11 +276,13 @@ def lm_loss(
     logits, aux, hidden = lm_forward(params, batch["tokens"], cfg, image_embeds=image_embeds)
     P = cfg.vlm_patches if image_embeds is not None else 0
     loss = softmax_xent(logits[:, P:][:, :-1, :], batch["labels"][:, 1:])
-    total = loss + aux_coef * aux
+    # each term whole before they meet: under a mesh the token mean and the
+    # MoE aux are partial sums of different kinds (an average, a sum)
+    total = replicate(loss) + aux_coef * replicate(aux)
     metrics = {"xent": loss, "moe_aux": aux}
     if cfg.mtp_depth > 0 and "mtp" in params:
         mtp_loss = _mtp_loss(params, batch, cfg, hidden[:, P:, :])
-        total = total + mtp_coef * mtp_loss
+        total = total + mtp_coef * replicate(mtp_loss)
         metrics["mtp"] = mtp_loss
     return total, metrics
 
@@ -399,11 +404,11 @@ def decode_step(
         for i, lp in enumerate(unbind_layers(params[key], n_layers)):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
             a, nc = _attend(h, lp, cfg, q_pos, cache=layer(cache[key], i), cache_idx=idx)
-            x = x + a
+            x = shard(x + a, "batch", "seq", "act_embed")
             h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
             m = moe_block(h, lp["mlp"], cfg)[0] if use_moe else glu(h, lp["mlp"],
                                                                      act=cfg.mlp_act)
-            x = x + m
+            x = shard(x + m, "batch", "seq", "act_embed")
             states.append(nc)
         return x, _stack(states)
 

@@ -92,9 +92,9 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     for lp in unbind_layers(params["enc_layers"], cfg.encdec.encoder_layers):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, _ = attention(h, lp["attn"], cfg, pos, causal=False, use_rope=False)
-        x = x + a
+        x = shard(x + a, "batch", "frames", "act_embed")
         h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(h, lp["mlp"])
+        x = shard(x + _mlp(h, lp["mlp"]), "batch", "frames", "act_embed")
     return rmsnorm(x, params["enc_ln"], cfg.norm_eps)
 
 
@@ -102,13 +102,13 @@ def _dec_layer(c, lp, cfg, pos, enc_out, self_cache=None, cross_cache=None, idx=
     h = rmsnorm(c, lp["ln1"], cfg.norm_eps)
     a, new_self = attention(h, lp["attn"], cfg, pos, causal=True, use_rope=False,
                             cache=self_cache, cache_idx=idx)
-    c = c + a
+    c = shard(c + a, "batch", "seq", "act_embed")
     h = rmsnorm(c, lp["lnx"], cfg.norm_eps)
     a, new_cross = attention(h, lp["xattn"], cfg, pos, use_rope=False, x_kv=enc_out,
                              cache=cross_cache)
-    c = c + a
+    c = shard(c + a, "batch", "seq", "act_embed")
     h = rmsnorm(c, lp["ln2"], cfg.norm_eps)
-    return c + _mlp(h, lp["mlp"]), new_self, new_cross
+    return shard(c + _mlp(h, lp["mlp"]), "batch", "seq", "act_embed"), new_self, new_cross
 
 
 def decode_train(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,

@@ -25,7 +25,6 @@ replicated (``implicit_replication``), as GSPMD treats an unsharded array.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import dataclasses
 import math
 from typing import Any, Sequence
@@ -35,10 +34,30 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 Spec = tuple  # one entry a dim: a mesh-axis name, a tuple of names, or None
 
-_MESH: contextvars.ContextVar[Any] = contextvars.ContextVar("repro_torch_mesh", default=None)
-_RULES: contextvars.ContextVar[dict[str, Any] | None] = contextvars.ContextVar(
-    "repro_torch_act_rules", default=None
-)
+
+class _ProcessVar:
+    """A process-wide value with ``contextvars.ContextVar``'s ``get`` /
+    ``set`` / ``reset``.  Not a context variable: autograd runs a backward
+    pass on CUDA tensors on a thread of its own, and the recompute of a
+    checkpointed block (``remat``) there must see the layout hints the
+    forward pass saw."""
+
+    def __init__(self):
+        self._value = None
+
+    def get(self):
+        return self._value
+
+    def set(self, value):
+        token, self._value = self._value, value
+        return token
+
+    def reset(self, token) -> None:
+        self._value = token
+
+
+_MESH = _ProcessVar()  # the mesh under use_mesh, or None
+_RULES = _ProcessVar()  # the activation rules under use_mesh / act_rules, or None
 
 # Default mesh axis of each logical activation axis (the reference's table).
 ACT_RULES: dict[str, Any] = {
@@ -115,16 +134,18 @@ def shard_offsets(shape: Sequence[int], mesh, placements_: Sequence[Placement]
                   ) -> tuple[list[int], list[int]]:
     """This rank's (local shape, global offset) of a tensor of ``shape``
     laid out by ``placements_`` on ``mesh``: each ``Shard(d)`` splits dim
-    ``d`` evenly, mesh dims in order (the first the major split)."""
+    ``d`` into ``ceil``-sized chunks as ``torch.chunk`` (DTensor's rule; the
+    last chunks short or empty where the mesh size does not divide it),
+    mesh dims in order (the first the major split)."""
     local, offset = list(shape), [0] * len(shape)
     coord = mesh.get_coordinate()
     for i, p in enumerate(placements_):
         if isinstance(p, Shard):
-            n = mesh.size(i)
-            if local[p.dim] % n:
-                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not split {n} ways")
-            local[p.dim] //= n
-            offset[p.dim] += coord[i] * local[p.dim]
+            size = local[p.dim]
+            chunk = -(-size // mesh.size(i))
+            start = min(coord[i] * chunk, size)
+            local[p.dim] = min(chunk, size - start)
+            offset[p.dim] += start
     return local, offset
 
 
@@ -209,6 +230,17 @@ def get_mesh():
 
 def set_act_rules(rules: dict[str, Any] | None) -> None:
     _RULES.set(rules)
+
+
+@contextlib.contextmanager
+def act_rules(rules: dict[str, Any] | None = None):
+    """The activation rules ``rules`` over :data:`ACT_RULES` while active,
+    without a mesh (layout rules read on a mesh's names and sizes alone)."""
+    tok = _RULES.set({**ACT_RULES, **(rules or {})})
+    try:
+        yield
+    finally:
+        _RULES.reset(tok)
 
 
 @contextlib.contextmanager
