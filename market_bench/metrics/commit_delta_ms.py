@@ -1,0 +1,7 @@
+"""Milliseconds of a tick's commit where it cut a delta record (the tick's
+own ``commit_ms`` and ``record``)."""
+from market_bench.metrics_common import tick_mean
+
+
+def read(t):
+    return tick_mean(t, "commit_ms", record="delta")
