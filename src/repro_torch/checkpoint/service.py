@@ -42,6 +42,7 @@ import numpy as np
 
 from ..core.economy import EpochStats
 from ..core.types import MarketBook
+from ..trace import Stopwatch
 from .store import CheckpointStore
 
 # EpochStats fields that are numpy arrays (stacked across the history ring);
@@ -251,23 +252,24 @@ class ServiceCheckpointer(CheckpointStore):
         self._deltas_since_full = payload.prev_deltas_since_full
         self._base_step = payload.prev_base_step
 
-    def _write_payload(self, payload: _Payload) -> None:
+    def _write_payload(self, payload: _Payload, watch: Stopwatch) -> None:
+        """Write the record (its host copies, npz and manifest), then
+        publish it (rename it into place, prune), each a stage of ``watch``."""
         prefix = _FULL if payload.kind == "full" else _DELTA
         probe = "mid_compaction" if payload.kind == "full" else "mid_delta"
-        self.write_record(
-            prefix,
-            payload.step,
-            payload.tree,
-            metadata=payload.meta,
-            pre_replace=lambda: payload.hook(probe),
-        )
-        if payload.kind == "full":
-            # the new full supersedes the old chain; the probe below kills
-            # between the replace and the prune (both generations on disk)
-            payload.hook("post_compaction")
-        self._prune()
+        with watch.stage("service.commit.write", "commit_write_ms"):
+            staged = self.stage_record(prefix, payload.step, payload.tree, metadata=payload.meta)
+        payload.hook(probe)
+        with watch.stage("service.commit.publish", "commit_publish_ms"):
+            self.publish_record(staged)
+            if payload.kind == "full":
+                # the new full supersedes the old chain; the probe below kills
+                # between the replace and the prune (both generations on disk)
+                payload.hook("post_compaction")
+            self._prune()
 
-    def save(self, svc, block: bool = True, force_full: bool = False) -> int:
+    def save(self, svc, block: bool = True, force_full: bool = False,
+             watch: Stopwatch | None = None) -> int:
         """Checkpoint at the current tick boundary; returns the step.
 
         The step is ``svc.epoch`` — the number of binding ticks committed.
@@ -275,37 +277,44 @@ class ServiceCheckpointer(CheckpointStore):
         ``block=False`` is :meth:`save_async`.  Any in-flight background
         save is settled first; its failure raises here (callers that want
         graceful failure semantics settle via :meth:`wait_commit`
-        themselves, as the service's commit path does)."""
+        themselves, as the service's commit path does).  ``watch`` times
+        the snapshot, the write and the publish."""
         _, err = self.wait_commit(svc)
         if err is not None:
             raise err
         if not block:
-            return self.save_async(svc, force_full=force_full)
-        payload = self._snapshot(svc, force_full=force_full)
+            return self.save_async(svc, force_full=force_full, watch=watch)
+        watch = watch if watch is not None else Stopwatch()
+        with watch.stage("service.commit.snapshot", "commit_snapshot_ms"):
+            payload = self._snapshot(svc, force_full=force_full)
         try:
-            self._write_payload(payload)
+            self._write_payload(payload, watch)
         except BaseException:
             self._rollback(payload, svc)
             raise
         return payload.step
 
-    def save_async(self, svc, force_full: bool = False) -> int:
+    def save_async(self, svc, force_full: bool = False,
+                   watch: Stopwatch | None = None) -> int:
         """Cut the snapshot now, write it on a background thread.
 
         Overlaps serialization with the next tick's settlement; the next
         commit joins via :meth:`wait_commit`.  The snapshot is stable by
         construction (copied arrays), so the in-flight tick can mutate the
-        book freely."""
+        book freely.  ``watch`` times the snapshot alone: the write and the
+        publish are the background thread's."""
         _, err = self.wait_commit(svc)
         if err is not None:
             raise err
-        payload = self._snapshot(svc, force_full=force_full, copy=True)
+        watch = watch if watch is not None else Stopwatch()
+        with watch.stage("service.commit.snapshot", "commit_snapshot_ms"):
+            payload = self._snapshot(svc, force_full=force_full, copy=True)
         self._inflight = payload
 
         def work():
             try:
                 payload.hook("pre_delta_write")
-                self._write_payload(payload)
+                self._write_payload(payload, Stopwatch())
             except BaseException as e:  # surfaced by wait_commit
                 self._thread_error = e
 

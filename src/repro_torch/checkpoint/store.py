@@ -70,6 +70,17 @@ class CheckpointStore:
         crash-probe point the recovery suite kills at (a record must be
         all-or-nothing, never half-visible).
         """
+        staged = self.stage_record(prefix, step, tree, metadata)
+        if pre_replace is not None:
+            pre_replace()
+        return self.publish_record(staged)
+
+    def stage_record(
+        self, prefix: str, step: int, tree: dict, metadata: dict | None = None
+    ) -> tuple[str, str]:
+        """The first half of :meth:`write_record`: the host copies, the npz
+        and the manifest, in the record's staging directory, which no reader
+        sees.  Returns ``(staging directory, final directory)``."""
         host = {k: _host(tree[k]) for k in sorted(tree.keys())}
         manifest = {
             "step": int(step),
@@ -85,12 +96,17 @@ class CheckpointStore:
         np.savez(os.path.join(tmp, "arrays.npz"), **host)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
-        if pre_replace is not None:
-            pre_replace()
+        return tmp, final
+
+    def publish_record(self, staged: tuple[str, str]) -> str:
+        """The second half of :meth:`write_record`: the staged record
+        renamed into place (replacing one of the same step); returns its
+        directory name."""
+        tmp, final = staged
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
-        return name
+        return os.path.basename(final)
 
     def write_record_async(self, *args, **kwargs) -> None:
         """Run :meth:`write_record` on a background thread (one in flight).

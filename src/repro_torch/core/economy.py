@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..kernels import ops
+from ..trace import span, traced
 from .auction import (
     ClockConfig,
     UsersMesh,
@@ -218,6 +219,7 @@ class AgentPopulation:
             for i in range(len(self))
         ]
 
+    @traced("economy.margins")
     def margins(self) -> np.ndarray:
         """(N,) current bid margin: margin0 · decay^epoch (vectorized)."""
         return self.margin0 * self.margin_decay ** self.epoch
@@ -776,6 +778,7 @@ class Economy:
         m = self.utilization().mean(axis=1)
         return 100.0 * (m < m[c] - 1e-12).mean()
 
+    @traced("economy.percentiles")
     def _util_percentiles(self) -> np.ndarray:
         """(C,) percentile rank of every cluster's mean utilization."""
         m = self.utilization().mean(axis=1)
@@ -789,6 +792,7 @@ class Economy:
         return self.run_epoch(dry_run=True).prices
 
     # -- epoch randomness -----------------------------------------------------
+    @traced("economy.draws")
     def _draw_bid_randomness(self) -> tuple[np.ndarray, np.ndarray]:
         """One epoch's random draws, as flat arrays.
 
@@ -830,6 +834,7 @@ class Economy:
         ).reshape(self.C, self.T)
         return float((self.pop.req[agent_idx] * prices[placed[agent_idx]]).sum())
 
+    @traced("economy.faults")
     def _epoch_view(
         self,
     ) -> tuple[
@@ -956,6 +961,7 @@ class Economy:
             num_rtypes=self.T,
         )
 
+    @traced("economy.policies")
     def _apply_policies(
         self, perm_keys: np.ndarray, dry_run: bool
     ) -> tuple[
@@ -1372,6 +1378,7 @@ class Economy:
         )
 
     # -- one auction epoch ---------------------------------------------------
+    @traced("economy.epoch")
     def run_epoch(self, dry_run: bool = False) -> EpochStats:
         """Settle one auction epoch and apply allocations.
 
@@ -1681,6 +1688,7 @@ class Economy:
             self._state_dirty = False
         return self._device_state
 
+    @traced("economy.prepare")
     def _fused_prepare(self, dry_run: bool) -> dict:
         """Host half of a fused epoch: faults view and pre-claw commit,
         reserve curve, warm seed, epoch randomness, policy overlays —
@@ -1696,27 +1704,28 @@ class Economy:
             self.pop.placed[pre_evict] = -1
             self.usage = usage_eff
             self._state_dirty = True
-        psi_flat = (
-            np.clip(usage_eff / np.maximum(cap_eff, 1e-9), 0.0, 1.0)
-            .reshape(-1)
-            .copy()
-        )
-        if draw is None:
-            tilde_p = reserve_prices(self.pools(), self.weighting)
-            free_basis = self.capacity
-        else:
-            tilde_p = reputation_weighted_reserve(
-                self._pools_from(cap_eff, usage_eff),
-                self.weighting,
-                reliability=self.pool_reliability,
-                discount=self.reliability_discount,
+        with span("economy.reserve"):
+            psi_flat = (
+                np.clip(usage_eff / np.maximum(cap_eff, 1e-9), 0.0, 1.0)
+                .reshape(-1)
+                .copy()
             )
-            free_basis = cap_eff
-        base_cost_flat = np.tile(self.base_cost_rt, C).astype(np.float32)
-        warm = self.warm_start and bool(self.price_history)
-        start = (
-            self._warm_seed(np.asarray(tilde_p)) if warm else np.asarray(tilde_p)
-        ).astype(np.float32)
+            if draw is None:
+                tilde_p = reserve_prices(self.pools(), self.weighting)
+                free_basis = self.capacity
+            else:
+                tilde_p = reputation_weighted_reserve(
+                    self._pools_from(cap_eff, usage_eff),
+                    self.weighting,
+                    reliability=self.pool_reliability,
+                    discount=self.reliability_discount,
+                )
+                free_basis = cap_eff
+            base_cost_flat = np.tile(self.base_cost_rt, C).astype(np.float32)
+            warm = self.warm_start and bool(self.price_history)
+            start = (
+                self._warm_seed(np.asarray(tilde_p)) if warm else np.asarray(tilde_p)
+            ).astype(np.float32)
 
         u_arb, perm_keys = self._draw_bid_randomness()
         perm_keys, pi_scale, arb, margin = self._apply_policies(perm_keys, dry_run)
@@ -1772,39 +1781,42 @@ class Economy:
         "placed_new", "home_new", "fill_new",
     )
 
+    @traced("economy.dispatch")
     def _fused_dispatch(self, prep: dict, dry_run: bool) -> dict:
         """Upload the epoch's inputs and run the fused program.  On the card
         it returns once the clock has settled, with the settle stage queued
         behind it."""
         fn = self._fused_program()
         n = len(self.pop)
-        if dry_run:
-            # ephemeral state copies: the program updates them in place,
-            # the persistent device state and host mirrors are untouched
-            self._fused_const()
-            pad_i = np.full(max(self._fused_n - n, 0), -1, np.int64)
-            state = (
-                self._upload(np.concatenate([prep["placed_eff"], pad_i])),
-                self._upload(np.concatenate([self.pop.home, pad_i])),
-                self._upload(self._pad_agents(self.pop.fill_rate, 1.0)),
-                self._upload(prep["usage_eff"]),
-                self._upload(self.belief),
+        with span("economy.upload"):
+            if dry_run:
+                # ephemeral state copies: the program updates them in place,
+                # the persistent device state and host mirrors are untouched
+                self._fused_const()
+                pad_i = np.full(max(self._fused_n - n, 0), -1, np.int64)
+                state = (
+                    self._upload(np.concatenate([prep["placed_eff"], pad_i])),
+                    self._upload(np.concatenate([self.pop.home, pad_i])),
+                    self._upload(self._pad_agents(self.pop.fill_rate, 1.0)),
+                    self._upload(prep["usage_eff"]),
+                    self._upload(self.belief),
+                )
+            else:
+                state = self._fused_state()
+            inputs = tuple(
+                self._upload(self._pad_agents(np.asarray(prep[k]), fill))
+                for k, fill in self._FUSED_AGENT_INPUTS
+            ) + tuple(
+                self._upload(prep[k])
+                for k in ("cap_eff", "free_basis", "tilde_p", "start", "base_cost_flat")
             )
-        else:
-            state = self._fused_state()
-        inputs = tuple(
-            self._upload(self._pad_agents(np.asarray(prep[k]), fill))
-            for k, fill in self._FUSED_AGENT_INPUTS
-        ) + tuple(
-            self._upload(prep[k])
-            for k in ("cap_eff", "free_basis", "tilde_p", "start", "base_cost_flat")
-        )
         out = fn(self._device_const, state, inputs)
         if self._fused_n != n:
             for k in self._FUSED_AGENT_OUTPUTS:
                 out[k] = out[k][:n]
         return out
 
+    @traced("economy.adopt")
     def _fused_adopt(self, prep: dict, out: dict) -> None:
         """Sync the host mirrors from the epoch's outputs (waits for the
         device): only what the next epoch's host half reads — mirrors, price
@@ -1833,6 +1845,7 @@ class Economy:
         prep["buy_agents"] = buy_agents
         prep["bc"] = bc
 
+    @traced("economy.finalize")
     def _fused_finalize(self, prep: dict, out: dict, dry_run: bool) -> EpochStats:
         """Assemble EpochStats from the epoch's outputs and ``prep``.
 

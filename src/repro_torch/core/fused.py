@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops, ref
+from ..trace import span
 from .auction import (
     ClockConfig,
     ClockLoop,
@@ -202,8 +203,10 @@ class FusedEpoch:
         graph on the card, call it on the CPU."""
         stage = self._stages.get(name)
         if stage is None:
-            graph = self._device.type == "cuda" and not self.plain
-            stage = ops.CountedGraph(fn, warmup) if graph else fn
+            stage = fn
+            if self._device.type == "cuda" and not self.plain:
+                with span("fused.capture"):
+                    stage = ops.CountedGraph(fn, warmup)
             self._stages[name] = stage
         return stage.replay() if isinstance(stage, ops.CountedGraph) else stage()
 
@@ -364,9 +367,15 @@ class FusedEpoch:
         loop.reset(start)
         name = f"clock{k}"
         if name not in self._stages:
-            loop.chunk()  # the eager first chunk warms the stage up
-        while loop.running():
-            self._run(name, loop.chunk, warmup=False)
+            with span("fused.clock.chunk"):
+                loop.chunk()  # the eager first chunk warms the stage up
+        while True:
+            with span("fused.clock.check"):
+                running = loop.running()
+            if not running:
+                break
+            with span("fused.clock.chunk"):
+                self._run(name, loop.chunk, warmup=False)
 
     # -- settle, verify, surplus, apply ----------------------------------------------
     def _settle(self) -> dict[str, torch.Tensor]:
@@ -483,22 +492,28 @@ class FusedEpoch:
     def __call__(self, const, state, inputs) -> dict:
         state_t = state.as_tuple() if isinstance(state, DeviceMarketState) else tuple(state)
         self._bind(const, state_t, inputs)
-        self._book = self._run("pack", self._pack)
+        with span("fused.pack"):
+            self._book = self._run("pack", self._pack)
 
         # clock + bounded-retry escalation ladder: the host reads the
         # convergence flag between stages
-        self._clock(0, self._in["start"])
+        with span("fused.clock"):
+            self._clock(0, self._in["start"])
         prices, rounds = self._loops[0].prices(), self._loops[0].t.clone()
         esc = 0
         for k in range(1, len(self.cfgs)):
-            if bool((self._excess(prices) <= self.cfgs[0].tol).all()):
+            with span("fused.clock.check"):
+                settled = bool((self._excess(prices) <= self.cfgs[0].tol).all())
+            if settled:
                 break
             esc += 1
-            self._clock(k, prices)
+            with span("fused.clock"):
+                self._clock(k, prices)
             prices, rounds = self._loops[k].prices(), self._loops[k].t.clone()
         self._prices.copy_(prices)
 
-        out = self._run("settle", self._settle)
+        with span("fused.settle"):
+            out = self._run("settle", self._settle)
         out = {k: v.clone() for k, v in out.items()}
         for name, new in zip(STATE_FIELDS, ("placed_new", "home_new", "fill_new",
                                             "usage_new", "belief_new")):

@@ -68,6 +68,7 @@ from ..core.faults import FaultModel
 from ..core.reserve import reserve_prices
 from ..core.types import MarketBook, as_device
 from ..kernels import ops
+from ..trace import Stopwatch, traced
 from .config import ServiceConfig
 from .wal import WriteAheadLog
 
@@ -176,9 +177,12 @@ class MarketService:
     Each binding tick leaves the host milliseconds of its stages in
     ``last_tick_timings`` (drain, device sync, settle and the CUDA-graph
     capture inside it, commit, the whole tick), each read after the device
-    has finished the stage.  ``build_timings`` holds the constructor's
-    restore and WAL replay, and :meth:`from_economy`'s bulk load and
-    bootstrap record.
+    has finished the stage, and of the commit's phases that ran in the
+    tick: the record's snapshot, its write and its publish (the rename,
+    the prune and the WAL's truncation, or the WAL's sync where no record
+    was cut).  Each stage and phase is a span of :mod:`repro_torch.trace`.
+    ``build_timings`` holds the constructor's restore and WAL replay, and
+    :meth:`from_economy`'s bulk load and bootstrap record.
     """
 
     def __init__(
@@ -298,6 +302,7 @@ class MarketService:
         if fn is not None:
             fn()
 
+    @traced("service.wal_append")
     def _wal_append(self, record) -> None:
         if self._wal is not None and not self._replaying:
             self._wal.append(record)
@@ -325,6 +330,7 @@ class MarketService:
             self._replaying = False
         return count
 
+    @traced("service.submit")
     def submit(self, delta: BidDelta) -> bool:
         """Queue one delta for the next tick.  Returns acceptance.
 
@@ -359,6 +365,7 @@ class MarketService:
         self._pending[delta.key] = ("upsert", row, raw)
         return True
 
+    @traced("service.withdraw")
     def withdraw(self, key) -> bool:
         """Queue a withdrawal.  Unknown keys are rejected (False)."""
         self._wal_append(("withdraw", key))
@@ -482,6 +489,7 @@ class MarketService:
                 is_op[slot] = True
         return is_op
 
+    @traced("service.tick")
     def tick(
         self, dry_run: bool = False, deadline_s: float | None = None
     ) -> EpochStats:
@@ -502,17 +510,18 @@ class MarketService:
         """
         if deadline_s is None:
             deadline_s = self.tick_deadline_s
+        watch = Stopwatch(self._now)
         t_start = self._now()
-        if dry_run:
-            submitted = withdrawn = 0
-        else:
-            submitted, withdrawn = self._drain()
-            self._hook("post_drain")
-        t_drained = self._now()
+        with watch.stage("service.drain", "drain_ms"):
+            if dry_run:
+                submitted = withdrawn = 0
+            else:
+                submitted, withdrawn = self._drain()
+                self._hook("post_drain")
         # the mirror read in place as the K-padded book: the same numbers the
         # reference reconstructs from its CSR view, without a per-tick gather
-        problem = self.book.device_padded_problem()
-        t_synced = self._now()
+        with watch.stage("service.sync", "sync_ms"):
+            problem = self.book.device_padded_problem()
         sync_rows = self.book.last_sync_rows
 
         dropped = 0
@@ -542,13 +551,12 @@ class MarketService:
             else self.reserve
         )
         captured = ops.capture_stats()["seconds"]
-        t_settle = self._now()
-        result, escalations, deadline_missed = self._settle(
-            problem,
-            torch.from_numpy(np.asarray(start, np.float32)).to(self.device),
-            deadline_s,
-        )
-        t_settled = self._now()
+        with watch.stage("service.settle", "settle_ms"):
+            result, escalations, deadline_missed = self._settle(
+                problem,
+                torch.from_numpy(np.asarray(start, np.float32)).to(self.device),
+                deadline_s,
+            )
         captured = ops.capture_stats()["seconds"] - captured
         prices = result.prices.cpu().numpy()
         converged = bool(result.converged)
@@ -620,19 +628,13 @@ class MarketService:
             self._stats_since_ckpt += 1
             del self.stats_history[: -self.max_history]
             self.epoch += 1
-            t_commit = self._now()
-            record = self._commit_durable()
+            with watch.stage("service.commit", "commit_ms"):
+                record = self._commit_durable(watch)
             t_end = self._now()
-            self.last_tick_timings = {
-                "drain_ms": (t_drained - t_start) * 1e3,
-                "sync_ms": (t_synced - t_drained) * 1e3,
-                "sync_rows": sync_rows,
-                "settle_ms": (t_settled - t_settle) * 1e3,
-                "capture_ms": captured * 1e3,
-                "commit_ms": (t_end - t_commit) * 1e3,
-                "record": record,
-                "tick_ms": (t_end - t_start) * 1e3,
-            }
+            # drain, sync, settle, commit and the commit's phases
+            self.last_tick_timings = dict(
+                watch.ms, sync_rows=sync_rows, capture_ms=captured * 1e3, record=record,
+                tick_ms=(t_end - t_start) * 1e3)
         return stats
 
     def _settle_async_save(self) -> bool:
@@ -671,9 +673,12 @@ class MarketService:
                 self._durable_wal_offset - removed, floor
             )
 
-    def _commit_durable(self) -> str | None:
+    def _commit_durable(self, watch: Stopwatch) -> str | None:
         """Tick-boundary durability: checkpoint, then compact the WAL;
         returns the kind of record cut (``"full"`` / ``"delta"``), if any.
+        ``watch`` times the phases that are the tick's own: the record's
+        snapshot, write and publish, the WAL's truncation or sync with
+        them, and with ``async_commit`` the snapshot alone.
 
         The pending queue is empty here (the tick just drained it), so a
         cut checkpoint covers every drained WAL record.  Ordering contract:
@@ -691,30 +696,34 @@ class MarketService:
         WAL instead, as does a service with no checkpointer — committed
         ticks are power-durable even under the cheap per-append flush
         mode."""
+        publish = ("service.commit.publish", "commit_publish_ms")
         if self._ckpt is None:
             if self._wal is not None:
-                self._wal.sync()
+                with watch.stage(*publish):
+                    self._wal.sync()
             return None
         self._hook("pre_commit_wait")
         self._settle_async_save()
         if self.epoch % self.checkpoint_interval != 0:
             if self._wal is not None:
-                self._wal.sync()
+                with watch.stage(*publish):
+                    self._wal.sync()
             return None
         if self.async_commit:
             # truncate to the *previous* save's durable offset before
             # dispatching this one — the new record's tail stays journaled
             # until the next tick proves it durable
             self._truncate_wal()
-            self._ckpt.save_async(self)
+            self._ckpt.save_async(self, watch=watch)
             if self._wal is not None:
                 self._wal.sync()
         else:
-            self._ckpt.save(self, block=True)
+            self._ckpt.save(self, block=True, watch=watch)
             if self._wal is not None:
                 self._durable_wal_offset = self._wal_drained_offset
                 self._hook("post_delta_pre_truncate")
-                self._truncate_wal()
+                with watch.stage(*publish):
+                    self._truncate_wal()
         return self._ckpt.last_kind
 
     def flush(self) -> bool:
