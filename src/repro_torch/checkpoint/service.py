@@ -98,6 +98,9 @@ class ServiceCheckpointer(CheckpointStore):
         self._force_full = False  # set after a failed full write
         self._inflight: _Payload | None = None
         self.last_kind: str | None = None  # "full" | "delta": the newest record cut
+        # how many accounts the newest record encoded, and how many of them
+        # raw (bundles, pi) submissions
+        self.last_accounts: dict[str, int] = {}
         self._lock = threading.Lock()  # prune vs. read listing
 
     # -- write ----------------------------------------------------------------
@@ -212,6 +215,9 @@ class ServiceCheckpointer(CheckpointStore):
                 **self._service_meta(svc),
             }
 
+        kinds = tree["book/kinds"]
+        self.last_accounts = {"commit_accounts": int(kinds.size),
+                              "commit_raw_accounts": int(np.count_nonzero(kinds == 0))}
         payload = _Payload(
             kind="full" if full else "delta",
             step=step,

@@ -683,6 +683,17 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
+def _json_key(key) -> bool:
+    """Whether ``key`` can go into a durable record's JSON metadata."""
+    if type(key) is str or type(key) is int:
+        return True
+    try:
+        json.dumps(key)
+    except TypeError:
+        return False
+    return True
+
+
 class MarketBook:
     """Persistent slotted bid book with amortized-O(Δ) delta application.
 
@@ -713,6 +724,10 @@ class MarketBook:
     delete); within the service's validated quantity range every ledger op is
     exact in float64, so the incremental ledger equals the oracle's
     from-scratch sum bit for bit.
+
+    Each live account's durable encoding (:meth:`_encode_accounts`) is kept
+    in per-slot columns that every write maintains, apart from the slot
+    arrays, so an export is a few gathers with no per-account work.
     """
 
     def __init__(
@@ -763,6 +778,34 @@ class MarketBook:
         self.val = np.zeros(rows_cap * b * k, np.float32)
         self.mask = np.zeros((rows_cap, b), bool)
         self.pi = np.zeros((rows_cap, b), np.float32)
+        # the encoding columns, one row a slot, read only where ``live``.
+        # kind 0, a raw (bundles, pi) submission: ``mask`` its bundles (a
+        # prefix), ``nnz`` each bundle's length, ``idx``/``val`` the bundles'
+        # pairs flattened in submission order from the row's start, ``pi``
+        # broadcast over the bundles.  kind 1, a pre-packed payload: ``idx``,
+        # ``val``, ``mask``, ``pi`` as written.  Zero past what an account holds.
+        self._cols = {
+            "live": np.zeros(rows_cap, bool),
+            "bad_key": np.zeros(rows_cap, bool),  # key not JSON-serializable
+            "kind": np.zeros(rows_cap, np.int8),
+            "idx": np.zeros((rows_cap, b * k), np.int32),
+            "val": np.zeros((rows_cap, b * k), np.float32),
+            "mask": np.zeros((rows_cap, b), bool),
+            "nnz": np.zeros((rows_cap, b), np.int32),
+            "pi": np.zeros((rows_cap, b), np.float32),
+        }
+
+    def _grow(self, new_cap: int) -> None:
+        """Reallocate every per-slot array at ``new_cap`` rows, contents kept."""
+        old = {name: getattr(self, name) for name in ("idx", "val", "mask", "pi")}
+        old_cols = self._cols
+        self._alloc_arrays(new_cap)
+        for name, a in old.items():
+            getattr(self, name)[: a.shape[0]] = a
+        for name, a in old_cols.items():
+            self._cols[name][: a.shape[0]] = a
+        self._slot_key.extend([None] * (new_cap - self.rows_cap))
+        self.rows_cap = new_cap
 
     def _ensure_rows(self, extra: int) -> None:
         need = self._next_slot - len(self._free) + extra
@@ -771,15 +814,7 @@ class MarketBook:
         new_cap = self.rows_cap
         while new_cap < need:
             new_cap *= 2
-        b, k = self.num_bundles, self.k_bound
-        idx, val, mask, pi = self.idx, self.val, self.mask, self.pi
-        self._alloc_arrays(new_cap)
-        self.idx[: idx.shape[0]] = idx
-        self.val[: val.shape[0]] = val
-        self.mask[: mask.shape[0]] = mask
-        self.pi[: pi.shape[0]] = pi
-        self._slot_key.extend([None] * (new_cap - self.rows_cap))
-        self.rows_cap = new_cap
+        self._grow(new_cap)
         self._generation += 1  # stale device mirror: full re-upload
         self._dev = None
         self._dev_pending.clear()
@@ -831,15 +866,78 @@ class MarketBook:
             raise ValueError("pi must be finite")
         return idx_row, val_row, mask_row, pi_row
 
+    # -- encoding columns ---------------------------------------------------
+
+    def _raw_columns(self, accounts) -> dict:
+        """The encoding columns of raw (bundles, pi) accounts, one row each:
+        one pass over their bundles, then vectorized writes.  An account the
+        columns cannot hold (over B bundles, a bundle that is not a flat
+        (idx, val) pair of one length, or over K long) raises ValueError."""
+        b_cap, k_cap = self.num_bundles, self.k_bound
+        counts, pis, pairs = [], [], []
+        for bundles, p in accounts:
+            n = len(bundles)
+            counts.append(n)
+            p = np.asarray(p, np.float32)
+            pis.append(p if p.shape == (n,) else np.broadcast_to(p, (n,)))
+            pairs.extend(bundles)
+        idx, val = zip(*pairs) if pairs else ((), ())
+        nnz = np.fromiter(map(len, idx), np.int64, len(idx))
+        if (np.array(counts, np.int64) > b_cap).any() or (nnz > k_cap).any():
+            raise ValueError(f"an account holds at most {b_cap} bundles of {k_cap} pairs")
+        if not np.array_equal(nnz, np.fromiter(map(len, val), np.int64, len(val))):
+            raise ValueError("each bundle must be an (idx, val) pair of one length")
+
+        def flat(chunks, dtype):
+            out = np.concatenate([np.zeros(0, dtype), *chunks], dtype=dtype, casting="unsafe")
+            if out.ndim != 1:
+                raise ValueError("each bundle must be a flat (idx, val) pair")
+            return out
+
+        mask = np.arange(b_cap) < np.array(counts, np.int64)[:, None]
+        nnz_rows = np.zeros(mask.shape, np.int32)
+        nnz_rows[mask] = nnz
+        return self._flat_columns(mask, nnz_rows, flat(idx, np.int32), flat(val, np.float32),
+                                  flat(pis, np.float32))
+
+    def _flat_columns(self, mask, nnz_rows, idx, val, pi) -> dict:
+        """Raw accounts' columns from their flat encoding: each row's pairs
+        and π laid from its start, in order."""
+        d, bk = mask.shape[0], self.num_bundles * self.k_bound
+        pairs = np.arange(bk) < nnz_rows.sum(axis=1)[:, None]
+        cols = {"kind": 0, "mask": mask, "nnz": nnz_rows,
+                "idx": np.zeros((d, bk), np.int32), "val": np.zeros((d, bk), np.float32),
+                "pi": np.zeros(mask.shape, np.float32)}
+        cols["idx"][pairs] = idx
+        cols["val"][pairs] = val
+        cols["pi"][mask] = pi
+        return cols
+
+    def _packed_columns(self, idx_rows, val_rows, mask_rows, pi_rows) -> dict:
+        """Pre-packed payloads' columns, one row each."""
+        d, bk = len(mask_rows), self.num_bundles * self.k_bound
+        return {"kind": 1, "idx": np.asarray(idx_rows, np.int32).reshape(d, bk),
+                "val": np.asarray(val_rows, np.float32).reshape(d, bk),
+                "mask": np.asarray(mask_rows, bool), "nnz": 0,
+                "pi": np.asarray(pi_rows, np.float32)}
+
+    def _store_columns(self, slots, keys, cols: dict) -> None:
+        """Write accounts' columns into their slots and mark them live."""
+        self._cols["live"][slots] = True
+        self._cols["bad_key"][slots] = [not _json_key(key) for key in keys]
+        for name, v in cols.items():
+            self._cols[name][slots] = v
+
     # -- delta application --------------------------------------------------
 
     def upsert(self, key, bundles, pi) -> None:
         """Insert or replace one account's bid.  Amortized O(B·K)."""
         row = self._pack_row(bundles, pi)
-        self._write_rows([key], *(a[None] for a in row))
-        self._accounts[key] = (tuple(
+        acct = (tuple(
             (np.array(ii, np.int32), np.array(vv, np.float32)) for ii, vv in bundles
         ), np.asarray(pi, np.float32))
+        self._write_rows([key], *(a[None] for a in row), raw=[acct])
+        self._accounts[key] = acct
 
     def upsert_rows(self, keys, idx_rows, val_rows, mask_rows, pi_rows, raw=None):
         """Vectorized multi-account upsert of pre-packed row payloads.
@@ -847,7 +945,7 @@ class MarketBook:
         ``raw`` optionally carries the original (bundles, pi) submissions so
         :meth:`rebuilt` can re-pack them; when omitted the payload itself is
         stored (already canonical)."""
-        self._write_rows(keys, idx_rows, val_rows, mask_rows, pi_rows)
+        self._write_rows(keys, idx_rows, val_rows, mask_rows, pi_rows, raw)
         for i, key in enumerate(keys):
             if raw is not None:
                 self._accounts[key] = raw[i]
@@ -857,7 +955,7 @@ class MarketBook:
                     mask_rows[i].copy(), pi_rows[i].copy(),
                 )
 
-    def _write_rows(self, keys, idx_rows, val_rows, mask_rows, pi_rows) -> None:
+    def _write_rows(self, keys, idx_rows, val_rows, mask_rows, pi_rows, raw=None) -> None:
         d = len(keys)
         if len(set(keys)) != d:
             # the ledger reads each slot's old contents once per batch, so a
@@ -867,6 +965,10 @@ class MarketBook:
         val_rows = np.asarray(val_rows, np.float32)
         mask_rows = np.asarray(mask_rows, bool)
         pi_rows = np.asarray(pi_rows, np.float32)
+        # built before any write, so an account the columns reject leaves
+        # the book as it was
+        cols = (self._packed_columns(idx_rows, val_rows, mask_rows, pi_rows)
+                if raw is None else self._raw_columns(raw))
         new = [k for k in keys if k not in self._key_slot]
         self._ensure_rows(len(new))
         slots = np.empty(d, np.int64)
@@ -913,6 +1015,7 @@ class MarketBook:
         self.val[flat] = val_rows.reshape(-1)
         self.mask[slots] = mask_rows
         self.pi[slots] = pi_rows
+        self._store_columns(slots, keys, cols)
         self._dev_pending.extend(int(s) for s in slots)
         self._ckpt_dirty.update(int(s) for s in slots)
         self.deltas_applied += d
@@ -938,6 +1041,7 @@ class MarketBook:
         self.val[lo:hi] = 0.0
         self.mask[s] = False
         self.pi[s] = 0.0
+        self._cols["live"][s] = False
         self._slot_key[s] = None
         self._accounts.pop(key, None)
         self._free.append(s)
@@ -1051,6 +1155,8 @@ class MarketBook:
         fresh = MarketBook(
             self.base_cost, self.num_bundles, self.k_bound, self.rows_cap, self.device
         )
+        raw: list = []  # (slot, key, account) of each kind
+        packed: list = []
         for s in range(self._next_slot):
             key = self._slot_key[s]
             if key is None:
@@ -1058,8 +1164,10 @@ class MarketBook:
             acct = self._accounts[key]
             if len(acct) == 2:  # (bundles, pi) raw submission
                 row = fresh._pack_row(*acct)
+                raw.append((s, key, acct))
             else:  # pre-packed payload from upsert_rows
                 row = acct
+                packed.append((s, key, acct))
             fresh._key_slot[key] = s
             fresh._slot_key[s] = key
             fresh._accounts[key] = acct
@@ -1083,13 +1191,27 @@ class MarketBook:
             )
         fresh._next_slot = self._next_slot
         fresh._free = [s for s in range(self._next_slot) if self._slot_key[s] is None]
+        if raw:
+            slots, keys, accts = zip(*raw)
+            fresh._store_columns(list(slots), keys, fresh._raw_columns(accts))
+        if packed:
+            slots, keys, accts = zip(*packed)
+            fresh._store_columns(list(slots), keys, fresh._packed_columns(
+                *(np.stack(a) for a in zip(*accts))))
         return fresh
 
     def parity_check(self) -> None:
-        """Assert the incremental book is bit-identical to a full repack."""
+        """Assert the incremental book is bit-identical to a full repack,
+        its encoding columns at the live slots included."""
         oracle = self.rebuilt()
-        for name in ("idx", "val", "mask", "pi"):
-            a, b = getattr(self, name), getattr(oracle, name)
+        live = self._cols["live"]
+        pairs = {name: (getattr(self, name), getattr(oracle, name))
+                 for name in ("idx", "val", "mask", "pi")}
+        pairs["account live"] = (live, oracle._cols["live"])
+        for name, a in self._cols.items():
+            if name != "live":
+                pairs[f"account {name}"] = (a[live], oracle._cols[name][live])
+        for name, (a, b) in pairs.items():
             if not np.array_equal(a, b):
                 where = np.flatnonzero((a != b).reshape(-1))[:8]
                 raise AssertionError(
@@ -1117,79 +1239,63 @@ class MarketBook:
         """CSR-flatten the raw accounts behind ``live_slots`` (ascending
         slot order, every slot live) into O(1) npz-able arrays.  Shared by
         the full and dirty-row exporters so both spell the identical
-        on-disk encoding."""
-        keys: list = []
-        slots: list[int] = []
-        kinds: list[int] = []  # 0 = raw (bundles, pi), 1 = pre-packed payload
-        raw_counts: list[int] = []
-        raw_nnz: list[int] = []
-        raw_idx: list[np.ndarray] = []
-        raw_val: list[np.ndarray] = []
-        raw_pi: list[np.ndarray] = []
-        packed_idx: list[np.ndarray] = []
-        packed_val: list[np.ndarray] = []
-        packed_mask: list[np.ndarray] = []
-        packed_pi: list[np.ndarray] = []
-        b_cap, k_cap = self.num_bundles, self.k_bound
-        for s in live_slots:
-            key = self._slot_key[s]
-            try:
-                json.dumps(key)
-            except TypeError:
-                raise TypeError(
-                    f"book key {key!r} is not JSON-serializable — durable "
-                    "books require str/int keys"
-                ) from None
-            acct = self._accounts[key]
-            keys.append(key)
-            slots.append(s)
-            if len(acct) == 2:  # raw (bundles, pi) submission
-                bundles, pi = acct
-                kinds.append(0)
-                raw_counts.append(len(bundles))
-                pi_arr = np.broadcast_to(
-                    np.asarray(pi, np.float32), (len(bundles),)
-                )
-                raw_pi.append(np.asarray(pi_arr, np.float32))
-                for ii, vv in bundles:
-                    ii = np.asarray(ii, np.int32).reshape(-1)
-                    raw_nnz.append(ii.shape[0])
-                    raw_idx.append(ii)
-                    raw_val.append(np.asarray(vv, np.float32).reshape(-1))
-            else:  # pre-packed (idx, val, mask, pi) payload
-                kinds.append(1)
-                packed_idx.append(np.asarray(acct[0], np.int32))
-                packed_val.append(np.asarray(acct[1], np.float32))
-                packed_mask.append(np.asarray(acct[2], bool))
-                packed_pi.append(np.asarray(acct[3], np.float32))
-
-        def _cat(chunks, dtype):
-            return (
-                np.concatenate(chunks).astype(dtype, copy=False)
-                if chunks
-                else np.zeros(0, dtype)
+        on-disk encoding.  Gathers from the encoding columns: raw accounts'
+        bundles, pairs and π in slot order, pre-packed payloads stacked."""
+        slots = np.asarray(live_slots, np.int64)
+        cols = self._cols
+        bad = cols["bad_key"][slots]
+        if bad.any():
+            key = self._slot_key[int(slots[np.argmax(bad)])]
+            raise TypeError(
+                f"book key {key!r} is not JSON-serializable — durable "
+                "books require str/int keys"
             )
-
-        def _stack(chunks, dtype, shape):
-            return (
-                np.stack(chunks).astype(dtype, copy=False)
-                if chunks
-                else np.zeros((0, *shape), dtype)
-            )
-
+        slot_key = self._slot_key
+        keys = [slot_key[s] for s in slots.tolist()]
+        kinds = cols["kind"][slots]  # 0 = raw (bundles, pi), 1 = pre-packed payload
+        raw, packed = slots[kinds == 0], slots[kinds == 1]
+        bundles = cols["mask"][raw]
+        nnz = cols["nnz"][raw]
+        pairs = np.arange(self.num_bundles * self.k_bound) < nnz.sum(axis=1)[:, None]
+        shape = (packed.shape[0], self.num_bundles, self.k_bound)
         return keys, {
-            "slots": np.asarray(slots, np.int64),
-            "kinds": np.asarray(kinds, np.int8),
-            "raw_counts": np.asarray(raw_counts, np.int32),
-            "raw_nnz": np.asarray(raw_nnz, np.int32),
-            "raw_idx": _cat(raw_idx, np.int32),
-            "raw_val": _cat(raw_val, np.float32),
-            "raw_pi": _cat(raw_pi, np.float32),
-            "packed_idx": _stack(packed_idx, np.int32, (b_cap, k_cap)),
-            "packed_val": _stack(packed_val, np.float32, (b_cap, k_cap)),
-            "packed_mask": _stack(packed_mask, bool, (b_cap,)),
-            "packed_pi": _stack(packed_pi, np.float32, (b_cap,)),
+            "slots": slots,
+            "kinds": kinds,
+            "raw_counts": bundles.sum(axis=1, dtype=np.int32),
+            "raw_nnz": nnz[bundles],
+            "raw_idx": cols["idx"][raw][pairs],
+            "raw_val": cols["val"][raw][pairs],
+            "raw_pi": cols["pi"][raw][bundles],
+            "packed_idx": cols["idx"][packed].reshape(shape),
+            "packed_val": cols["val"][packed].reshape(shape),
+            "packed_mask": cols["mask"][packed],
+            "packed_pi": cols["pi"][packed],
         }
+
+    def _install_encoded(self, arrays: dict, keys: list) -> None:
+        """Fill the encoding columns of the accounts an
+        :meth:`_encode_accounts` record holds, from its arrays.  A record
+        whose accounts do not fit this book's B and K raises ValueError."""
+        slots = np.asarray(arrays["slots"], np.int64)
+        packed = np.asarray(arrays["kinds"], np.int8) != 0
+        counts = np.asarray(arrays["raw_counts"], np.int64)
+        b_cap, k_cap = self.num_bundles, self.k_bound
+        if counts.shape != (int((~packed).sum()),) or (counts < 0).any() \
+                or (counts > b_cap).any():
+            raise ValueError("account encoding does not fit the book")
+        mask = np.arange(b_cap) < counts[:, None]
+        nnz = np.zeros(mask.shape, np.int32)
+        nnz[mask] = np.asarray(arrays["raw_nnz"], np.int32)
+        if (nnz < 0).any() or (nnz > k_cap).any():
+            raise ValueError("account encoding does not fit the book")
+        self._store_columns(slots[~packed], [k for k, p in zip(keys, packed) if not p],
+                            self._flat_columns(
+                                mask, nnz, np.asarray(arrays["raw_idx"], np.int32),
+                                np.asarray(arrays["raw_val"], np.float32),
+                                np.asarray(arrays["raw_pi"], np.float32)))
+        self._store_columns(slots[packed], [k for k, p in zip(keys, packed) if p],
+                            self._packed_columns(*(arrays[f"packed_{name}"] for name in (
+                                "idx", "val", "mask", "pi"))))
 
     @staticmethod
     def _decode_accounts(arrays: dict, keys: list):
@@ -1252,9 +1358,7 @@ class MarketBook:
         delta chains from.  The returned arrays alias live book storage —
         callers persisting them asynchronously must copy first.
         """
-        live = [
-            s for s in range(self._next_slot) if self._slot_key[s] is not None
-        ]
+        live = np.flatnonzero(self._cols["live"][: self._next_slot])
         keys, acct_arrays = self._encode_accounts(live)
         arrays = {
             "idx": self.idx,
@@ -1312,8 +1416,7 @@ class MarketBook:
         el = (
             sl[:, None] * (b * k) + np.arange(b * k, dtype=np.int64)[None, :]
         ).reshape(-1)
-        live = [s for s in rows if self._slot_key[s] is not None]
-        keys, acct_arrays = self._encode_accounts(live)
+        keys, acct_arrays = self._encode_accounts(sl[self._cols["live"][sl]])
         arrays = {
             "rows": sl,
             "idx": self.idx[el],
@@ -1360,14 +1463,7 @@ class MarketBook:
         if new_cap < self.rows_cap:
             raise ValueError("delta record predates this book (rows_cap shrank)")
         if new_cap > self.rows_cap:
-            idx, val, mask, pi = self.idx, self.val, self.mask, self.pi
-            self._alloc_arrays(new_cap)
-            self.idx[: idx.shape[0]] = idx
-            self.val[: val.shape[0]] = val
-            self.mask[: mask.shape[0]] = mask
-            self.pi[: pi.shape[0]] = pi
-            self._slot_key.extend([None] * (new_cap - self.rows_cap))
-            self.rows_cap = new_cap
+            self._grow(new_cap)
         rows = np.asarray(arrays["rows"], np.int64)
         b, k = self.num_bundles, self.k_bound
         el = (
@@ -1383,12 +1479,14 @@ class MarketBook:
                 self._key_slot.pop(old, None)
                 self._accounts.pop(old, None)
                 self._slot_key[int(s)] = None
+        self._cols["live"][rows] = False
         for s, key in zip(rows, meta["row_keys"]):
             if key is not None:
                 self._slot_key[int(s)] = key
                 self._key_slot[key] = int(s)
         for key, _s, acct in self._decode_accounts(arrays, meta["keys"]):
             self._accounts[key] = acct
+        self._install_encoded(arrays, meta["keys"])
         self._ledger = np.asarray(arrays["ledger"], np.float64).copy()
         self._sell_ledger = np.asarray(arrays["sell_ledger"], np.float64).copy()
         self._free = [int(x) for x in arrays["free"]]
@@ -1438,6 +1536,7 @@ class MarketBook:
             book._key_slot[key] = s
             book._slot_key[s] = key
             book._accounts[key] = acct
+        book._install_encoded(arrays, meta["keys"])
         return book
 
 

@@ -180,7 +180,10 @@ class MarketService:
     has finished the stage, and of the commit's phases that ran in the
     tick: the record's snapshot, its write and its publish (the rename,
     the prune and the WAL's truncation, or the WAL's sync where no record
-    was cut).  Each stage and phase is a span of :mod:`repro_torch.trace`.
+    was cut); with a record, how many accounts it encoded
+    (``commit_accounts``) and how many of them raw
+    (``commit_raw_accounts``).  Each stage and phase is a span of
+    :mod:`repro_torch.trace`.
     ``build_timings`` holds the constructor's restore and WAL replay, and
     :meth:`from_economy`'s bulk load and bootstrap record.
     """
@@ -631,9 +634,11 @@ class MarketService:
             with watch.stage("service.commit", "commit_ms"):
                 record = self._commit_durable(watch)
             t_end = self._now()
-            # drain, sync, settle, commit and the commit's phases
+            # drain, sync, settle, commit and the commit's phases; the
+            # accounts a cut record encoded
             self.last_tick_timings = dict(
                 watch.ms, sync_rows=sync_rows, capture_ms=captured * 1e3, record=record,
+                **(self._ckpt.last_accounts if record is not None else {}),
                 tick_ms=(t_end - t_start) * 1e3)
         return stats
 

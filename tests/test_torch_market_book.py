@@ -9,6 +9,8 @@ the reference's CSR mirror, kept by ``_csr_apply_row_deltas``; and
 ``parity_check`` (the full-repack oracle) passes and catches a corrupted
 row.
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -203,3 +205,201 @@ def test_state_and_dirty_records_cross_packages(direction):
     base.apply_dirty_state(*src.export_dirty_state(clear=True))
     _assert_books_equal(src, base, direction)
     base.parity_check()
+
+
+def _loop_encode(book, live_slots):
+    """The account encoder the book's per-slot columns replaced: a Python
+    loop over the live accounts and each raw account's bundles, reading
+    ``_slot_key`` and ``_accounts``.  Kept as the columns' oracle."""
+    keys, slots, kinds = [], [], []
+    raw_counts, raw_nnz, raw_idx, raw_val, raw_pi = [], [], [], [], []
+    packed_idx, packed_val, packed_mask, packed_pi = [], [], [], []
+    for s in live_slots:
+        key = book._slot_key[s]
+        try:
+            json.dumps(key)
+        except TypeError:
+            raise TypeError(
+                f"book key {key!r} is not JSON-serializable — durable "
+                "books require str/int keys"
+            ) from None
+        acct = book._accounts[key]
+        keys.append(key)
+        slots.append(s)
+        if len(acct) == 2:
+            bundles, pi = acct
+            kinds.append(0)
+            raw_counts.append(len(bundles))
+            raw_pi.append(np.asarray(np.broadcast_to(np.asarray(pi, np.float32),
+                                                     (len(bundles),)), np.float32))
+            for ii, vv in bundles:
+                ii = np.asarray(ii, np.int32).reshape(-1)
+                raw_nnz.append(ii.shape[0])
+                raw_idx.append(ii)
+                raw_val.append(np.asarray(vv, np.float32).reshape(-1))
+        else:
+            kinds.append(1)
+            packed_idx.append(np.asarray(acct[0], np.int32))
+            packed_val.append(np.asarray(acct[1], np.float32))
+            packed_mask.append(np.asarray(acct[2], bool))
+            packed_pi.append(np.asarray(acct[3], np.float32))
+
+    def cat(chunks, dtype):
+        return np.concatenate(chunks).astype(dtype, copy=False) if chunks else np.zeros(0, dtype)
+
+    def stack(chunks, dtype, shape):
+        return (np.stack(chunks).astype(dtype, copy=False) if chunks
+                else np.zeros((0, *shape), dtype))
+
+    return keys, {
+        "slots": np.asarray(slots, np.int64),
+        "kinds": np.asarray(kinds, np.int8),
+        "raw_counts": np.asarray(raw_counts, np.int32),
+        "raw_nnz": np.asarray(raw_nnz, np.int32),
+        "raw_idx": cat(raw_idx, np.int32),
+        "raw_val": cat(raw_val, np.float32),
+        "raw_pi": cat(raw_pi, np.float32),
+        "packed_idx": stack(packed_idx, np.int32, (B, K)),
+        "packed_val": stack(packed_val, np.float32, (B, K)),
+        "packed_mask": stack(packed_mask, bool, (B,)),
+        "packed_pi": stack(packed_pi, np.float32, (B,)),
+    }
+
+
+def _assert_same_encoding(got, want, where):
+    (gk, ga), (wk, wa) = got, want
+    assert gk == wk, where
+    assert list(ga) == list(wa), where
+    for name, w in wa.items():
+        g = ga[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, (where, name, g.dtype, g.shape)
+        assert np.array_equal(g, w), (where, name)
+
+
+def _assert_encoding_is_the_loop(book, where):
+    """Both exporters' accounts are the loop encoder's, key for key and
+    array for array (dtype, shape and value)."""
+    arrays, meta = book.export_state()
+    live = [s for s in range(book._next_slot) if book._slot_key[s] is not None]
+    want = _loop_encode(book, live)
+    _assert_same_encoding((meta["keys"], {k: arrays[k] for k in want[1]}), want, (where, "full"))
+    dirty = sorted(book._ckpt_dirty)
+    arrays, meta = book.export_dirty_state(clear=False)
+    want = _loop_encode(book, [s for s in dirty if book._slot_key[s] is not None])
+    _assert_same_encoding((meta["keys"], {k: arrays[k] for k in want[1]}), want, (where, "dirty"))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_columnar_encoding_is_the_loop_encoding(seed):
+    """A seeded interleaving of raw upserts, packed upserts, the service's
+    drain (packed rows carrying their raw accounts), removes with LIFO slot
+    reuse, capacity doublings, delta replays onto a replica and restores:
+    after every step the columns encode what the loop encoder does, on the
+    writer and on the replica, and both books pass ``parity_check``."""
+    rng = np.random.default_rng(seed)
+    book = MarketBook(BASE, B, K, rows_cap=2, device="cpu")
+    replica = MarketBook.from_state(*book.export_state(clear_dirty=True), device="cpu")
+    live: list = []
+    n_keys = reused = 0
+
+    def fresh_keys(n):
+        nonlocal n_keys
+        # str and int keys alike: both are JSON-serializable
+        keys = [f"k{n_keys + i}" if (n_keys + i) % 3 else n_keys + i for i in range(n)]
+        n_keys += n
+        return keys
+
+    def some_keys(n):
+        """Up to n keys: live ones (updates, of either kind) and new ones."""
+        old = [live[i] for i in rng.permutation(len(live))[: int(rng.integers(0, n + 1))]]
+        return old + fresh_keys(n - len(old))
+
+    for step in range(80):
+        free = set(book._free)
+        op = rng.random()
+        if op < 0.25 or not live:
+            (key,) = some_keys(1)
+            book.upsert(key, *_raw(rng))
+        elif op < 0.45:
+            keys = some_keys(int(rng.integers(1, 6)))
+            book.upsert_rows(keys, *_packed(rng, len(keys)))
+        elif op < 0.65:
+            keys = some_keys(int(rng.integers(1, 6)))
+            raw = [_raw(rng) for _ in keys]
+            rows = [book._pack_row(*acct) for acct in raw]
+            book.upsert_rows(keys, *(np.stack(a) for a in zip(*rows)), raw=raw)
+        else:
+            for key in [live[i] for i in rng.permutation(len(live))[: int(rng.integers(1, 4))]]:
+                assert book.remove(key)
+        live = [book._slot_key[s] for s in range(book._next_slot) if book._slot_key[s] is not None]
+        reused += len(free - set(book._free))
+        _assert_encoding_is_the_loop(book, (seed, step))
+        if step % 5 == 4:
+            replica.apply_dirty_state(*book.export_dirty_state(clear=True))
+            _assert_encoding_is_the_loop(replica, (seed, step, "replica"))
+            _assert_books_equal(book, replica, (seed, step))
+        if step % 23 == 22:  # the writer and the replica restart from a full record
+            state = book.export_state(clear_dirty=True)
+            book = MarketBook.from_state(*state, device="cpu")
+            replica = MarketBook.from_state(*state, device="cpu")
+            _assert_encoding_is_the_loop(book, (seed, step, "restored"))
+    assert book.rows_cap >= 16 and reused > 0  # doubled from 2; freed slots taken again
+    book.parity_check()
+    replica.apply_dirty_state(*book.export_dirty_state(clear=True))
+    replica.parity_check()
+    _assert_books_equal(book, replica, (seed, "end"))
+
+
+def test_export_raises_for_a_key_json_cannot_hold():
+    """A non-JSON key is accepted by a write and refused by both exporters
+    with the loop encoder's TypeError; once withdrawn, the book exports."""
+    rng = np.random.default_rng(4)
+    book = MarketBook(BASE, B, K, device="cpu")
+    book.upsert_rows(["a", "b"], *_packed(rng, 2))
+    odd = frozenset({"not", "json"})
+    book.upsert(odd, *_raw(rng))
+    book.upsert("c", *_raw(rng))
+    live = [s for s in range(book._next_slot) if book._slot_key[s] is not None]
+    with pytest.raises(TypeError) as loop:
+        _loop_encode(book, live)
+    with pytest.raises(TypeError) as full:
+        book.export_state()
+    with pytest.raises(TypeError) as dirty:
+        book.export_dirty_state(clear=False)
+    assert str(full.value) == str(dirty.value) == str(loop.value)
+    assert "not JSON-serializable" in str(full.value)
+    assert book.remove(odd)
+    _assert_encoding_is_the_loop(book, "withdrawn")
+    book.parity_check()
+
+
+def test_a_raw_account_past_the_book_is_refused_where_written():
+    """The service's drain path checks each raw account against B and K
+    before it writes: a refused batch leaves the book as it was."""
+    rng = np.random.default_rng(6)
+    book = MarketBook(BASE, B, K, device="cpu")
+    book.upsert_rows(["a"], *_packed(rng, 1))
+    before = book.export_state()
+    fits = _raw(rng)
+    too_many = ([(np.array([0], np.int32), np.array([1.0], np.float32))] * (B + 1), 1.0)
+    too_long = ([(np.arange(K + 1, dtype=np.int32) % R, np.ones(K + 1, np.float32))], 1.0)
+    for bad in (too_many, too_long):
+        with pytest.raises(ValueError):
+            book.upsert_rows(["b", "c"], *_packed(rng, 2), raw=[fits, bad])
+        after = book.export_state()
+        assert after[1] == before[1] and len(book) == 1 and "b" not in book
+        for k, v in before[0].items():
+            assert np.array_equal(after[0][k], v), k
+    book.parity_check()
+
+
+def test_parity_check_catches_a_corrupted_account_column():
+    """The encoding columns are held to columns rebuilt from the accounts."""
+    rng = np.random.default_rng(8)
+    pb = MarketBook(BASE, B, K, device="cpu")
+    pb.upsert_rows([f"a{i}" for i in range(4)], *_packed(rng, 4))
+    pb.upsert("raw", *_raw(rng))
+    pb.parity_check()
+    pb._cols["val"][pb._key_slot["raw"], 0] += 1.0
+    with pytest.raises(AssertionError, match="account val"):
+        pb.parity_check()

@@ -350,3 +350,74 @@ def test_tick_and_build_timings(tmp_path):
     plain.tick()
     assert plain.last_tick_timings["record"] is None
     assert set(plain.build_timings) == {"restore_ms", "load_ms"}
+
+
+def test_commit_counts_the_accounts_each_record_encoded(tmp_path):
+    """A tick that cuts a record says how many accounts the record encoded
+    and how many of them raw (bundles, pi) submissions: a full record every
+    live account of the book, a delta the live accounts among the rows
+    written since the last record.  A service rebuilt from disk holds every
+    acknowledged delta."""
+    cfg = PORT.ServiceConfig(wal_path=str(tmp_path / "m.wal"),
+                             checkpoint_dir=str(tmp_path / "ck"), checkpoint_full_every=2)
+    eco = PORT.fleet_economy(40, 3, seed=2, device="cpu")
+    svc = PORT.MarketService.from_economy(eco, config=cfg)
+    keys, idx, val, mask, pi = eco.export_bid_rows()
+    live = np.flatnonzero(mask.any(axis=1))
+    seen = {}
+
+    def at_commit():  # after the drain and the settle, before the record
+        book = svc.book
+
+        def count(slots):
+            held = [book._slot_key[s] for s in slots if book._slot_key[s] is not None]
+            return len(held), sum(len(book._accounts[k]) == 2 for k in held)
+
+        seen["full"] = count(range(book._next_slot))
+        seen["delta"] = count(sorted(book._ckpt_dirty))
+
+    svc._test_hooks["pre_commit_wait"] = at_commit
+    acked: dict = {}  # key -> the last acknowledged submission, None once withdrawn
+
+    def batch(t):
+        rng = np.random.default_rng(300 + t)
+        for j, i in enumerate(rng.choice(live, size=8, replace=False)):
+            delta = PORT.BidDelta(keys[i], [(idx[i, b], val[i, b]) for b in np.flatnonzero(mask[i])],
+                                  pi[i][mask[i]] * (0.8 + 0.05 * j))
+            if svc.submit(delta):
+                acked[keys[i]] = delta
+        gone = keys[live[(3 * t) % len(live)]]
+        if svc.withdraw(gone):
+            acked[gone] = None
+
+    records, raw, books = [], [], []
+    for t in range(5):
+        batch(t)
+        svc.tick()
+        timings = svc.last_tick_timings
+        records.append(timings["record"])
+        assert (timings["commit_accounts"], timings["commit_raw_accounts"]) == \
+            seen[timings["record"]], t
+        raw.append(timings["commit_raw_accounts"])
+        books.append(seen["full"])
+    assert records == ["delta", "delta", "full", "delta", "delta"]
+    assert 0 < raw[0] < raw[2] == books[2][1]  # re-pricings turn packed accounts raw
+    assert books[-1][0] == len(svc.book) > seen["delta"][0] > 0
+    batch(5)  # acknowledged, journaled, not yet settled
+    svc.flush()
+    resumed = PORT.MarketService.from_economy(PORT.fleet_economy(40, 3, seed=2, device="cpu"),
+                                              config=cfg)
+    assert resumed.restored_step == 5 and resumed.replayed_records > 0
+    resumed.book.parity_check()
+    _assert_services_equal(svc, resumed, "rebuilt")
+    _assert_stats(svc.tick(), resumed.tick(), "next tick")
+    _assert_services_equal(svc, resumed, "after the next tick")
+    for key, delta in acked.items():
+        if delta is None:
+            assert key not in resumed.book, key
+            continue
+        bundles, p = resumed.book._accounts[key]
+        assert len(bundles) == len(delta.bundles), key
+        for (ii, vv), (wi, wv) in zip(bundles, delta.bundles):
+            assert np.array_equal(ii, wi) and np.array_equal(vv, np.float32(wv)), key
+        assert np.array_equal(p, np.asarray(delta.pi, np.float32)), key
