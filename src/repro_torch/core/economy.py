@@ -486,6 +486,10 @@ class Economy:
         # sticky-reach storage: last epoch's reach sort keys per agent (NaN
         # rows = no stored keys yet, e.g. arrivals)
         self._reach_keys: np.ndarray | None = None
+        # what the policies did in the last binding epoch that ran them:
+        # agents acted on, reach re-drawn, sell intent raised, margin
+        # overridden (empty without policies)
+        self.last_policy_counts: dict[str, int] = {}
         self._last_reserve: np.ndarray | None = None  # prior epoch's curve
         self._last_filled: np.ndarray | None = None  # (R,) buy-fill flags
         self.C, self.T = self.capacity.shape
@@ -994,20 +998,26 @@ class Economy:
         arb: np.ndarray | None = None
         margin: np.ndarray | None = None
         acted: list[np.ndarray] = []
+        counts = dict.fromkeys(("policy_acted", "policy_redraws", "policy_sellers",
+                                "policy_margin_overrides"), 0)
         for pid, pol in enumerate(self.policies):
             idx = np.flatnonzero(pop.policy == pid)
             if idx.size == 0:
                 continue
-            act = pol.act(obs, pop, idx)
+            with span(f"economy.policies.{pol.name}"):
+                act = pol.act(obs, pop, idx)
             if act is None:
                 continue
             acted.append(idx)
-            if act.redraw_reach is not None and self._reach_keys is not None:
-                keep = ~np.asarray(act.redraw_reach, bool)
-                keep &= ~np.isnan(self._reach_keys[idx]).any(axis=1)
-                rows = idx[keep]
-                perm_keys[rows] = self._reach_keys[rows]
-                base_keys[rows] = self._reach_keys[rows]
+            counts["policy_acted"] += idx.size
+            if act.redraw_reach is not None:
+                counts["policy_redraws"] += int(np.count_nonzero(act.redraw_reach))
+                if self._reach_keys is not None:
+                    keep = ~np.asarray(act.redraw_reach, bool)
+                    keep &= ~np.isnan(self._reach_keys[idx]).any(axis=1)
+                    rows = idx[keep]
+                    perm_keys[rows] = self._reach_keys[rows]
+                    base_keys[rows] = self._reach_keys[rows]
             if act.reach_bias is not None:
                 perm_keys[idx] += act.reach_bias
             if act.pi_scale is not None:
@@ -1017,17 +1027,22 @@ class Economy:
             if act.arbitrage is not None:
                 if arb is None:
                     arb = pop.arbitrage.copy()
+                counts["policy_sellers"] += int(np.count_nonzero(act.arbitrage > arb[idx]))
                 arb[idx] = act.arbitrage
             if act.margin is not None:
                 if margin is None:
                     margin = pop.margins()
+                counts["policy_margin_overrides"] += int(
+                    np.count_nonzero(act.margin != margin[idx]))
                 margin[idx] = act.margin
         if not dry_run:
             self._reach_keys = base_keys
+            self.last_policy_counts = counts
             # policy actions changed these agents' effective bids: mark them
             # dirty so the service bridge re-exports their rows
-            for idx in acted:
-                self._dirty_uids.update(self._agent_uid[idx].tolist())
+            with span("economy.policies.mark"):
+                for idx in acted:
+                    self._dirty_uids.update(self._agent_uid[idx].tolist())
         return perm_keys, pi_scale, arb, margin
 
     # -- bid-book construction -----------------------------------------------

@@ -91,8 +91,10 @@ class BidderPolicy:
     """Interface: observe the market, emit a :class:`PolicyAction`.
 
     ``act`` MUST be pure — no mutation of ``pop`` arrays, no internal
-    state.  The economy calls it on dry runs (``preview_prices``) too, and
-    purity is what keeps those side-effect-free.  Persistent per-agent
+    state that an action depends on (work arrays reused from call to call
+    are fine; no returned array may be one).  The economy calls it on dry
+    runs (``preview_prices``) too, and purity is what keeps those
+    side-effect-free.  Persistent per-agent
     policy state belongs in ``AgentPopulation`` fields (e.g. ``fill_rate``),
     which the economy maintains through arrivals and departures.
     """
@@ -149,11 +151,32 @@ class PriceChasingPolicy(BidderPolicy):
 
     name = "price_chasing"
 
+    # work arrays kept from one ``act`` to the next, grown to the largest
+    # agent count seen: at 10⁵ agents the step's (n, C) temporaries are tens
+    # of MB, and allocating them afresh every epoch costs fresh pages
+    _scratch: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+
+    def _buffers(self, n: int, C: int, T: int) -> dict[str, np.ndarray]:
+        """Scratch views over the first ``n`` rows: ``req`` (n, T), ``costs``
+        (n, 2C), ``cheap`` and ``work`` (n, C) float64, ``mask`` (n, C) bool.
+        No action holds one: every array ``act`` returns is made afresh."""
+        shapes = {"req": (T, np.float64), "costs": (2 * C, np.float64),
+                  "cheap": (C, np.float64), "work": (C, np.float64),
+                  "mask": (C, np.bool_)}
+        buf = self._scratch
+        if any(buf.get(k) is None or buf[k].shape[0] < n or buf[k].shape[1] != w
+               for k, (w, _) in shapes.items()):
+            buf.update({k: np.empty((n, w), dt) for k, (w, dt) in shapes.items()})
+        return {k: v[:n] for k, v in buf.items()}
+
     def act(self, obs, pop, idx):
         if obs.prices is None:
             return None  # epoch 0: no market signal yet
         n, C, T = idx.size, obs.num_clusters, obs.num_rtypes
-        req = pop.req[idx]
+        buf = self._buffers(n, C, T)
+        req = np.take(pop.req, idx, axis=0, out=buf["req"])
         # Both cost matrices in one BLAS call: req (n, T) against the price
         # and belief curves stacked as (T, 2C).  Decision logic, not
         # settlement — it does not need bundle_cluster_costs' fixed fold
@@ -166,9 +189,10 @@ class PriceChasingPolicy(BidderPolicy):
             ],
             axis=0,
         ).T  # (T, 2C)
-        costs = req @ curves
+        costs = np.matmul(req, curves, out=buf["costs"])
         cost_prev, cost_bel = costs[:, :C], costs[:, C:]  # (n, C) each
-        cheap = cost_bel - cost_prev  # > 0: cluster priced below belief
+        # > 0: cluster priced below belief
+        cheap = np.subtract(cost_bel, cost_prev, out=buf["cheap"])
 
         # chase gate: the best realizable move must clear the relocation
         # friction.  Homed agents compare against their home's price cost;
@@ -178,23 +202,24 @@ class PriceChasingPolicy(BidderPolicy):
         reloc = self.friction * pop.relocation_cost[idx]
         ar = np.arange(n)
         home_cl = np.clip(home, 0, C - 1)
-        move_gain = cost_prev[ar, home_cl][:, None] - cost_prev - reloc[:, None]
+        work, mask = buf["work"], buf["mask"]
+        move_gain = np.subtract(cost_prev[ar, home_cl][:, None], cost_prev, out=work)
+        move_gain -= reloc[:, None]
         move_gain[ar, home_cl] = -np.inf  # staying home is not a move
-        chase = np.where(
-            home >= 0,
-            (move_gain > 0.0).any(axis=1),
-            (cheap - reloc[:, None] > 0.0).any(axis=1),
-        )
+        moves = np.greater(move_gain, 0.0, out=mask).any(axis=1)
+        buys = np.greater(np.subtract(cheap, reloc[:, None], out=work), 0.0,
+                          out=mask).any(axis=1)
+        chase = np.where(home >= 0, moves, buys)
 
         # bias: fractional cheapness, only on below-belief clusters, only
         # for chasers.  strength ≥ 2 guarantees a fully-cheap cluster sorts
         # ahead of every unbiased U(0,1) key.
-        rel = cheap / np.maximum(np.abs(cost_bel), 1e-9)
-        bias = np.where(
-            chase[:, None] & (cheap > 0.0),
-            -self.strength * np.clip(rel, 0.0, 1.0),
-            0.0,
-        )
+        rel = np.maximum(np.abs(cost_bel, out=work), 1e-9, out=work)
+        rel = np.divide(cheap, rel, out=work)
+        scaled = np.multiply(-self.strength, np.clip(rel, 0.0, 1.0, out=work), out=work)
+        np.greater(cheap, 0.0, out=mask)
+        mask &= chase[:, None]
+        bias = np.where(mask, scaled, 0.0)
 
         # placed chasers put their holdings on the market (the packer's
         # trader gate still requires a congested home, psi > 0.75)

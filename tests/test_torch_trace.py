@@ -8,7 +8,12 @@
 * A binding tick's ``last_tick_timings`` keep every key they had and add
   the commit's phases: the snapshot, and with a blocking save the write and
   the publish, which add up to no more than the commit.
+* An economy with bidder policies records each policy's ``act`` and the
+  marking of the acting agents under ``economy.policies``, and counts what
+  the policies did in ``last_policy_counts``; one without policies keeps
+  no counts.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -29,6 +34,19 @@ PHASES = ("commit_snapshot_ms", "commit_write_ms", "commit_publish_ms")
 
 def _economy(agents=1000):
     return pt.fleet_economy(agents, 4, seed=3, fused=True, device="cpu")
+
+
+def _adaptive(agents=1000, **kw):
+    """The fleet with the three shipped policies: agents homed in the two
+    congested clusters chase prices, the rest alternate static and budget
+    smoothing."""
+    from repro_torch.core.policies import POLICY_REGISTRY
+
+    eco = pt.fleet_economy(agents, 4, seed=3, fused=True, device="cpu", **kw,
+                           policies=[POLICY_REGISTRY[k]() for k in POLICY_REGISTRY])
+    pop = eco.pop
+    pop.policy[:] = np.where(pop.home < 2, 1, np.arange(len(pop)) % 2 * 2)
+    return eco
 
 
 def _service(tmp_path, **config):
@@ -157,3 +175,56 @@ def test_a_tick_without_a_record_times_the_wal_sync(tmp_path):
     assert TICK_KEYS <= set(timings) and timings["record"] is None
     assert [k for k in PHASES if k in timings] == ["commit_publish_ms"]
     assert timings["commit_publish_ms"] <= timings["commit_ms"]
+
+
+def test_an_epoch_records_each_policy_and_the_marking():
+    eco = _adaptive()
+    eco.run_epoch()  # prices to chase
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eco.run_epoch()
+    got = _ranges(prof)
+    for name in ("economy.policies.static", "economy.policies.price_chasing",
+                 "economy.policies.budget_smoothing", "economy.policies.mark"):
+        _within(got, name, {"economy.policies"})
+
+
+def test_policy_counts_are_what_the_actions_did():
+    eco = _adaptive()
+    for epoch in range(3):
+        obs, pop = eco.observation(), eco.pop
+        want = dict.fromkeys(("policy_acted", "policy_redraws", "policy_sellers",
+                              "policy_margin_overrides"), 0)
+        for pid, pol in enumerate(eco.policies):
+            idx = np.flatnonzero(pop.policy == pid)
+            act = pol.act(obs, pop, idx)
+            if act is None:
+                continue
+            want["policy_acted"] += idx.size
+            if act.redraw_reach is not None:
+                want["policy_redraws"] += int(np.sum(act.redraw_reach))
+            if act.arbitrage is not None:
+                want["policy_sellers"] += int(np.sum(act.arbitrage > pop.arbitrage[idx]))
+            if act.margin is not None:
+                want["policy_margin_overrides"] += int(np.sum(act.margin != pop.margins()[idx]))
+        eco.run_epoch()
+        assert eco.last_policy_counts == want
+        if epoch:  # the chasers act once there are prices
+            assert want["policy_redraws"] > 0 and want["policy_margin_overrides"] > 0
+    eco.run_epoch(dry_run=True)
+    assert eco.last_policy_counts == want  # a dry run counts nothing
+
+
+def test_without_policies_no_counts_and_the_same_epochs():
+    from repro_torch.core.policies import StaticPolicy
+
+    plain = pt.fleet_economy(1000, 4, seed=3, fused=True, device="cpu")
+    static = pt.fleet_economy(1000, 4, seed=3, fused=True, device="cpu",
+                              policies=[StaticPolicy()])
+    for _ in range(3):
+        a, b = plain.run_epoch(), static.run_epoch()
+        assert np.array_equal(a.prices, b.prices) and a.rounds == b.rounds
+        assert a.migrations == b.migrations and a.surplus == b.surplus
+    assert plain.last_policy_counts == {}
+    assert static.last_policy_counts["policy_acted"] == 0
+    assert np.array_equal(plain.pop.placed, static.pop.placed)
+    assert np.array_equal(plain.usage, static.usage)
