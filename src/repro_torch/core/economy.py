@@ -107,6 +107,10 @@ _POP_FIELDS = (
 # per-epoch EMA weight of the newest fill observation in fill_rate
 FILL_EMA = 0.5
 
+# below 2^-1100 a power is exactly +0.0: the smallest subnormal is 2^-1074,
+# and the 25 binades between leave room for pow's and log2's rounding
+_MARGIN_ZERO_LOG2 = -1100.0
+
 
 @dataclasses.dataclass
 class AgentPopulation:
@@ -156,6 +160,10 @@ class AgentPopulation:
                 np.asarray(getattr(self, f), np.int64), (n,)).copy())
         if self.names is not None and len(self.names) != n:
             raise ValueError(f"{len(self.names)} names for {n} agents")
+        # running totals of margins(): calls, and agents whose power was
+        # computed (plain attributes, so select/concat/== ignore them)
+        self.margin_calls = 0
+        self.margin_powers = 0
 
     def __len__(self) -> int:
         return self.req.shape[0]
@@ -221,8 +229,25 @@ class AgentPopulation:
 
     @traced("economy.margins")
     def margins(self) -> np.ndarray:
-        """(N,) current bid margin: margin0 · decay^epoch (vectorized)."""
-        return self.margin0 * self.margin_decay ** self.epoch
+        """(N,) current bid margin: margin0 · decay^epoch (vectorized).
+
+        Bit for bit the plain expression.  An established agent's power
+        underflows to +0.0, which libm reaches through its slow path (~20×
+        a normal power), so powers whose log2 lies below
+        ``_MARGIN_ZERO_LOG2`` are not computed but left at that +0.0; the
+        product with margin0 still runs for every agent, keeping its signed
+        zeros and NaNs.  NaN, negative and signed-zero decays never skip."""
+        decay, epoch = self.margin_decay, self.epoch
+        with np.errstate(divide="ignore", invalid="ignore"):
+            live = np.log2(decay)
+            live *= epoch
+            live = ~(live < _MARGIN_ZERO_LOG2)
+        live |= np.signbit(decay)
+        self.margin_calls += 1
+        self.margin_powers += int(np.count_nonzero(live))
+        power = np.zeros(len(self))
+        np.power(decay, epoch, out=power, where=live)
+        return np.multiply(self.margin0, power, out=power)
 
     def select(self, keep: np.ndarray) -> "AgentPopulation":
         """Sub-population at a boolean mask or index array (copies)."""
@@ -490,6 +515,9 @@ class Economy:
         # agents acted on, reach re-drawn, sell intent raised, margin
         # overridden (empty without policies)
         self.last_policy_counts: dict[str, int] = {}
+        # margins() in the last binding epoch: calls, and agents whose
+        # power was computed rather than known to underflow to +0.0
+        self.last_margin_counts: dict[str, int] = {}
         self._last_reserve: np.ndarray | None = None  # prior epoch's curve
         self._last_filled: np.ndarray | None = None  # (R,) buy-fill flags
         self.C, self.T = self.capacity.shape
@@ -1045,6 +1073,12 @@ class Economy:
                     self._dirty_uids.update(self._agent_uid[idx].tolist())
         return perm_keys, pi_scale, arb, margin
 
+    def _keep_margin_counts(self, calls: int, powers: int) -> None:
+        """Store margins()' work since the totals ``calls``, ``powers``."""
+        pop = self.pop
+        self.last_margin_counts = {"margin_calls": pop.margin_calls - calls,
+                                   "margin_powers": pop.margin_powers - powers}
+
     # -- bid-book construction -----------------------------------------------
     def _pack_bids_vectorized(
         self,
@@ -1349,15 +1383,19 @@ class Economy:
     ) -> BidBook:
         """Draw epoch randomness, fold in policy actions, pack the book."""
         u_arb, perm_keys = self._draw_bid_randomness()
+        margins_before = self.pop.margin_calls, self.pop.margin_powers
         perm_keys, pi_scale, arb, margin = self._apply_policies(
             perm_keys, dry_run
         )
         pack = self._pack_bids_vectorized if self.packer == "vectorized" else self._pack_bids_loop
-        return pack(
+        book = pack(
             psi_flat, tilde_p, base_cost_flat, u_arb, perm_keys,
             pi_scale=pi_scale, arbitrage=arb, margin=margin,
             dropout=dropout, placed_override=placed_override, free=free,
         )
+        if not dry_run:
+            self._keep_margin_counts(*margins_before)
+        return book
 
     def pack_bid_book(self) -> BidBook:
         """Pack the coming epoch's bid book without settling (consumes RNG).
@@ -1743,6 +1781,7 @@ class Economy:
             ).astype(np.float32)
 
         u_arb, perm_keys = self._draw_bid_randomness()
+        margins_before = pop.margin_calls, pop.margin_powers
         perm_keys, pi_scale, arb, margin = self._apply_policies(perm_keys, dry_run)
         if pi_scale is None:
             pi_scale = np.ones(n, np.float64)
@@ -1750,6 +1789,8 @@ class Economy:
             arb = pop.arbitrage
         if margin is None:
             margin = pop.margins()
+        if not dry_run:
+            self._keep_margin_counts(*margins_before)
         dropout = (
             np.zeros(n, bool)
             if draw is None or draw.dropout is None

@@ -5,6 +5,8 @@ SYSTEM feasibility and every count are bit-identical; fields derived from
 payments (premiums, surplus, value of trade, compensation) agree to rtol
 1e-5, since the port's payment fold is not XLA's.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -167,3 +169,35 @@ def test_service_bridge_matches_reference():
     assert wj == wt and len(wt) > 0
     same_rows(uj, ut)
     assert et.drain_bid_deltas()[0] == []
+
+
+def _assert_stats_bit_identical(a, b, where):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), (where, f.name, x, y)
+        else:
+            assert np.asarray(x).tobytes() == np.asarray(y).tobytes(), (where, f.name, x, y)
+
+
+@pytest.mark.parametrize("fused,epoch0,chase,counts", [
+    (True, 0, False, [(1, 1_000)] * 3),
+    (True, 1_000, False, [(1, 0)] * 3),
+    (True, 1_000, True, [(1, 0), (2, 0), (2, 0)]),
+    (False, 1_000, False, [(1, 0)] * 3),
+], ids=["fused-young", "fused-established", "fused-chasing", "staged-established"])
+def test_margin_counts_and_stats_match_plain_margins(fused, epoch0, chase, counts):
+    """``last_margin_counts`` shows margins() skipping every power of an
+    established fleet (decay 0.3, 1,000 epochs bid), and the epochs settle
+    bit for bit as with the plain ``margin0 · decay^epoch``."""
+    kw = {"policies": [pt.PriceChasingPolicy()]} if chase else {}
+    ecos = [pt.fleet_economy(1_000, 8, seed=5, fused=fused, device="cpu", **kw) for _ in range(2)]
+    for eco in ecos:
+        eco.pop.epoch[:] = epoch0
+    eco, plain = ecos
+    plain.pop.margins = lambda p=plain.pop: p.margin0 * p.margin_decay ** p.epoch
+    for e, (calls, powers) in enumerate(counts):
+        _assert_stats_bit_identical(eco.run_epoch(), plain.run_epoch(), e)
+        assert eco.last_margin_counts == {"margin_calls": calls, "margin_powers": powers}, e
+    if chase:
+        assert eco.last_policy_counts["policy_margin_overrides"] > 0
