@@ -160,10 +160,6 @@ class AgentPopulation:
                 np.asarray(getattr(self, f), np.int64), (n,)).copy())
         if self.names is not None and len(self.names) != n:
             raise ValueError(f"{len(self.names)} names for {n} agents")
-        # running totals of margins(): calls, and agents whose power was
-        # computed (plain attributes, so select/concat/== ignore them)
-        self.margin_calls = 0
-        self.margin_powers = 0
 
     def __len__(self) -> int:
         return self.req.shape[0]
@@ -243,8 +239,6 @@ class AgentPopulation:
             live *= epoch
             live = ~(live < _MARGIN_ZERO_LOG2)
         live |= np.signbit(decay)
-        self.margin_calls += 1
-        self.margin_powers += int(np.count_nonzero(live))
         power = np.zeros(len(self))
         np.power(decay, epoch, out=power, where=live)
         return np.multiply(self.margin0, power, out=power)
@@ -515,9 +509,6 @@ class Economy:
         # agents acted on, reach re-drawn, sell intent raised, margin
         # overridden (empty without policies)
         self.last_policy_counts: dict[str, int] = {}
-        # margins() in the last binding epoch: calls, and agents whose
-        # power was computed rather than known to underflow to +0.0
-        self.last_margin_counts: dict[str, int] = {}
         self._last_reserve: np.ndarray | None = None  # prior epoch's curve
         self._last_filled: np.ndarray | None = None  # (R,) buy-fill flags
         self.C, self.T = self.capacity.shape
@@ -1073,17 +1064,12 @@ class Economy:
                     self._dirty_uids.update(self._agent_uid[idx].tolist())
         return perm_keys, pi_scale, arb, margin
 
-    def _keep_margin_counts(self, calls: int, powers: int) -> None:
-        """Store margins()' work since the totals ``calls``, ``powers``."""
-        pop = self.pop
-        self.last_margin_counts = {"margin_calls": pop.margin_calls - calls,
-                                   "margin_powers": pop.margin_powers - powers}
-
     # -- bid-book construction -----------------------------------------------
     def _pack_bids_vectorized(
         self,
         psi_flat: np.ndarray,
         tilde_p: np.ndarray,
+        free: np.ndarray,
         base_cost_flat: np.ndarray,
         u_arb: np.ndarray,
         perm_keys: np.ndarray,
@@ -1092,7 +1078,6 @@ class Economy:
         margin: np.ndarray | None = None,
         dropout: np.ndarray | None = None,
         placed_override: np.ndarray | None = None,
-        free: np.ndarray | None = None,
     ) -> BidBook:
         """Assemble the epoch bid book as pure array ops — O(nnz), no
         per-agent Python — emitting the variable-K CSR encoding directly.
@@ -1152,8 +1137,6 @@ class Economy:
         has_home = np.flatnonzero(home_b >= 0)
         key[has_home, home_b[has_home]] = -1.0  # home always first, always in
         order = np.argsort(key, axis=1, kind="stable")  # clusters in bundle order
-        if free is None:
-            free = np.maximum(self.capacity - self.usage, 0.0).reshape(-1)  # (R,)
         op_pools = np.flatnonzero(free > 1e-9)
         n_op = op_pools.size
 
@@ -1261,6 +1244,7 @@ class Economy:
         self,
         psi_flat: np.ndarray,
         tilde_p: np.ndarray,
+        free: np.ndarray,
         base_cost_flat: np.ndarray,
         u_arb: np.ndarray,
         perm_keys: np.ndarray,
@@ -1269,7 +1253,6 @@ class Economy:
         margin: np.ndarray | None = None,
         dropout: np.ndarray | None = None,
         placed_override: np.ndarray | None = None,
-        free: np.ndarray | None = None,
     ) -> BidBook:
         """The reference's per-agent packer (the pre-vectorization path), kept
         as the parity oracle: it consumes the same pre-drawn randomness and
@@ -1287,8 +1270,6 @@ class Economy:
         kinds: list[tuple] = []  # (agent_idx, kind, cluster list)
 
         placed_arr = pop.placed if placed_override is None else placed_override
-        if free is None:
-            free = np.maximum(self.capacity - self.usage, 0.0).reshape(-1)
         for r in range(self.R):
             if free[r] <= 1e-9:
                 continue
@@ -1371,31 +1352,52 @@ class Economy:
             bundle_cluster=bundle_cluster,
         )
 
+    def _reserve_view(
+        self, draw: FaultDraw | None, cap_eff: np.ndarray, usage_eff: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """The epoch's reserve view over the flat pools, from
+        :meth:`_epoch_view`'s ``(draw, cap_eff, usage_eff)``: ``(psi_flat,
+        tilde_p, free, base_cost_flat)`` — utilization, the reserve curve,
+        the operator's free supply and the base cost."""
+        psi_flat = (
+            np.clip(usage_eff / np.maximum(cap_eff, 1e-9), 0.0, 1.0)
+            .reshape(-1)
+            .copy()
+        )
+        if draw is None:
+            tilde_p = reserve_prices(self.pools(), self.weighting)
+        else:
+            # reputation-weighted reserves: the reliability EMA discounts
+            # each pool's effective capacity, pricing unreliable supply up
+            tilde_p = reputation_weighted_reserve(
+                self._pools_from(cap_eff, usage_eff),
+                self.weighting,
+                reliability=self.pool_reliability,
+                discount=self.reliability_discount,
+            )
+        free = np.maximum(cap_eff - usage_eff, 0.0).reshape(-1)
+        base_cost_flat = np.tile(self.base_cost_rt, self.C).astype(np.float32)
+        return psi_flat, tilde_p, free, base_cost_flat
+
     def _draw_and_pack(
         self,
-        psi_flat: np.ndarray,
-        tilde_p: np.ndarray,
-        base_cost_flat: np.ndarray,
+        view: tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
         dry_run: bool,
         dropout: np.ndarray | None = None,
         placed_override: np.ndarray | None = None,
-        free: np.ndarray | None = None,
     ) -> BidBook:
-        """Draw epoch randomness, fold in policy actions, pack the book."""
+        """Draw epoch randomness, fold in policy actions, pack the book on
+        the epoch's :meth:`_reserve_view`."""
         u_arb, perm_keys = self._draw_bid_randomness()
-        margins_before = self.pop.margin_calls, self.pop.margin_powers
         perm_keys, pi_scale, arb, margin = self._apply_policies(
             perm_keys, dry_run
         )
         pack = self._pack_bids_vectorized if self.packer == "vectorized" else self._pack_bids_loop
-        book = pack(
-            psi_flat, tilde_p, base_cost_flat, u_arb, perm_keys,
+        return pack(
+            *view, u_arb, perm_keys,
             pi_scale=pi_scale, arbitrage=arb, margin=margin,
-            dropout=dropout, placed_override=placed_override, free=free,
+            dropout=dropout, placed_override=placed_override,
         )
-        if not dry_run:
-            self._keep_margin_counts(*margins_before)
-        return book
 
     def pack_bid_book(self) -> BidBook:
         """Pack the coming epoch's bid book without settling (consumes RNG).
@@ -1407,27 +1409,10 @@ class Economy:
         views, so the book matches what the next binding epoch would pack.
         """
         draw, cap_eff, usage_eff, placed_ov, _, _, _ = self._epoch_view()
-        psi_flat = (
-            np.clip(usage_eff / np.maximum(cap_eff, 1e-9), 0.0, 1.0)
-            .reshape(-1)
-            .copy()
-        )
-        if draw is None:
-            tilde_p = reserve_prices(self.pools(), self.weighting)
-            free = None
-        else:
-            tilde_p = reputation_weighted_reserve(
-                self._pools_from(cap_eff, usage_eff),
-                self.weighting,
-                reliability=self.pool_reliability,
-                discount=self.reliability_discount,
-            )
-            free = np.maximum(cap_eff - usage_eff, 0.0).reshape(-1)
-        base_cost_flat = np.tile(self.base_cost_rt, self.C).astype(np.float32)
         return self._draw_and_pack(
-            psi_flat, tilde_p, base_cost_flat, dry_run=True,
+            self._reserve_view(draw, cap_eff, usage_eff), dry_run=True,
             dropout=None if draw is None else draw.dropout,
-            placed_override=placed_ov, free=free,
+            placed_override=placed_ov,
         )
 
     # -- one auction epoch ---------------------------------------------------
@@ -1489,30 +1474,13 @@ class Economy:
             # last settled prices; they re-enter this epoch's book as buyers
             self.pop.placed[pre_evict] = -1
             self.usage = usage_eff
-        psi_flat = (
-            np.clip(usage_eff / np.maximum(cap_eff, 1e-9), 0.0, 1.0)
-            .reshape(-1)
-            .copy()
-        )
-        if draw is None:
-            tilde_p = reserve_prices(self.pools(), self.weighting)
-            free_flat = None
-        else:
-            # reputation-weighted reserves: the reliability EMA discounts
-            # each pool's effective capacity, pricing unreliable supply up
-            tilde_p = reputation_weighted_reserve(
-                self._pools_from(cap_eff, usage_eff),
-                self.weighting,
-                reliability=self.pool_reliability,
-                discount=self.reliability_discount,
-            )
-            free_flat = np.maximum(cap_eff - usage_eff, 0.0).reshape(-1)
-        base_cost_flat = np.tile(self.base_cost_rt, self.C).astype(np.float32)
+        view = self._reserve_view(draw, cap_eff, usage_eff)
+        psi_flat, tilde_p, _, base_cost_flat = view
 
         book = self._draw_and_pack(
-            psi_flat, tilde_p, base_cost_flat, dry_run,
+            view, dry_run,
             dropout=None if draw is None else draw.dropout,
-            placed_override=placed_ov, free=free_flat,
+            placed_override=placed_ov,
         )
         if book.num_rows == 0:
             raise RuntimeError(
@@ -1758,30 +1726,14 @@ class Economy:
             self.usage = usage_eff
             self._state_dirty = True
         with span("economy.reserve"):
-            psi_flat = (
-                np.clip(usage_eff / np.maximum(cap_eff, 1e-9), 0.0, 1.0)
-                .reshape(-1)
-                .copy()
-            )
-            if draw is None:
-                tilde_p = reserve_prices(self.pools(), self.weighting)
-                free_basis = self.capacity
-            else:
-                tilde_p = reputation_weighted_reserve(
-                    self._pools_from(cap_eff, usage_eff),
-                    self.weighting,
-                    reliability=self.pool_reliability,
-                    discount=self.reliability_discount,
-                )
-                free_basis = cap_eff
-            base_cost_flat = np.tile(self.base_cost_rt, C).astype(np.float32)
+            psi_flat, tilde_p, free, base_cost_flat = self._reserve_view(
+                draw, cap_eff, usage_eff)
             warm = self.warm_start and bool(self.price_history)
             start = (
                 self._warm_seed(np.asarray(tilde_p)) if warm else np.asarray(tilde_p)
             ).astype(np.float32)
 
         u_arb, perm_keys = self._draw_bid_randomness()
-        margins_before = pop.margin_calls, pop.margin_powers
         perm_keys, pi_scale, arb, margin = self._apply_policies(perm_keys, dry_run)
         if pi_scale is None:
             pi_scale = np.ones(n, np.float64)
@@ -1789,8 +1741,6 @@ class Economy:
             arb = pop.arbitrage
         if margin is None:
             margin = pop.margins()
-        if not dry_run:
-            self._keep_margin_counts(*margins_before)
         dropout = (
             np.zeros(n, bool)
             if draw is None or draw.dropout is None
@@ -1801,17 +1751,16 @@ class Economy:
         # host twin of the device's presence masks: the staged empty-book
         # guard, plus the bid counts pct_settled needs
         placed_eff = placed_ov if (dry_run and placed_ov is not None) else pop.placed
-        free_host = np.maximum(free_basis - usage_eff, 0.0).reshape(-1)
         psi_home0 = psi_flat[np.clip(placed_eff, 0, C - 1) * T]
         sells = ((placed_eff >= 0) & (arb > 0) & (u_arb < arb) & (psi_home0 > 0.75)) & ~dropout
         wants = ((placed_eff < 0) | sells) & ~dropout
-        n_op = int((free_host > 1e-9).sum())
+        n_op = int((free > 1e-9).sum())
         if n_op + int(sells.sum()) + int(wants.sum()) == 0:
             raise RuntimeError("empty bid book: no operator supply and no bidding agents")
 
         return {
             "draw": draw, "cap_eff": cap_eff, "usage_eff": usage_eff,
-            "free_basis": free_basis, "psi_flat": psi_flat,
+            "psi_flat": psi_flat,
             "tilde_p": np.asarray(tilde_p), "base_cost_flat": base_cost_flat,
             "start": start, "warm": warm, "dropped": dropped,
             "pre_evict": pre_evict, "pre_claw": pre_claw, "pre_comp": pre_comp,
@@ -1859,12 +1808,14 @@ class Economy:
                 )
             else:
                 state = self._fused_state()
+            # cap_eff is also the program's free_basis: it takes the free
+            # supply as cap_eff less its own usage
+            cap_eff = self._upload(prep["cap_eff"])
             inputs = tuple(
                 self._upload(self._pad_agents(np.asarray(prep[k]), fill))
                 for k, fill in self._FUSED_AGENT_INPUTS
-            ) + tuple(
-                self._upload(prep[k])
-                for k in ("cap_eff", "free_basis", "tilde_p", "start", "base_cost_flat")
+            ) + (cap_eff, cap_eff) + tuple(
+                self._upload(prep[k]) for k in ("tilde_p", "start", "base_cost_flat")
             )
         out = fn(self._device_const, state, inputs)
         if self._fused_n != n:

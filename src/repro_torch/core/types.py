@@ -725,9 +725,11 @@ class MarketBook:
     exact in float64, so the incremental ledger equals the oracle's
     from-scratch sum bit for bit.
 
-    Each live account's durable encoding (:meth:`_encode_accounts`) is kept
-    in per-slot columns that every write maintains, apart from the slot
-    arrays, so an export is a few gathers with no per-account work.
+    Each live account is kept once, as its durable encoding
+    (:meth:`_encode_accounts`) in per-slot columns that every write
+    maintains apart from the slot arrays: an export is a few gathers with
+    no per-account work, and :meth:`rebuilt` re-packs each account from
+    them (:meth:`_account`).
     """
 
     def __init__(
@@ -751,7 +753,6 @@ class MarketBook:
         self._alloc_arrays(self.rows_cap)
         self._key_slot: dict = {}
         self._slot_key: list = [None] * self.rows_cap
-        self._accounts: dict = {}  # key -> (bundles tuple, pi tuple) as packed
         self._next_slot = 0
         self._free: list[int] = []  # LIFO of freed slots below _next_slot
         self._ledger = np.zeros(self.num_resources, np.float64)
@@ -933,11 +934,7 @@ class MarketBook:
     def upsert(self, key, bundles, pi) -> None:
         """Insert or replace one account's bid.  Amortized O(B·K)."""
         row = self._pack_row(bundles, pi)
-        acct = (tuple(
-            (np.array(ii, np.int32), np.array(vv, np.float32)) for ii, vv in bundles
-        ), np.asarray(pi, np.float32))
-        self._write_rows([key], *(a[None] for a in row), raw=[acct])
-        self._accounts[key] = acct
+        self._write_rows([key], *(a[None] for a in row), raw=[(bundles, pi)])
 
     def upsert_rows(self, keys, idx_rows, val_rows, mask_rows, pi_rows, raw=None):
         """Vectorized multi-account upsert of pre-packed row payloads.
@@ -946,14 +943,6 @@ class MarketBook:
         :meth:`rebuilt` can re-pack them; when omitted the payload itself is
         stored (already canonical)."""
         self._write_rows(keys, idx_rows, val_rows, mask_rows, pi_rows, raw)
-        for i, key in enumerate(keys):
-            if raw is not None:
-                self._accounts[key] = raw[i]
-            else:
-                self._accounts[key] = (
-                    idx_rows[i].copy(), val_rows[i].copy(),
-                    mask_rows[i].copy(), pi_rows[i].copy(),
-                )
 
     def _write_rows(self, keys, idx_rows, val_rows, mask_rows, pi_rows, raw=None) -> None:
         d = len(keys)
@@ -1043,7 +1032,6 @@ class MarketBook:
         self.pi[s] = 0.0
         self._cols["live"][s] = False
         self._slot_key[s] = None
-        self._accounts.pop(key, None)
         self._free.append(s)
         self._dev_pending.append(s)
         self._ckpt_dirty.add(int(s))
@@ -1147,6 +1135,21 @@ class MarketBook:
 
     # -- full-repack oracle -------------------------------------------------
 
+    def _account(self, s: int):
+        """Live slot ``s``'s account, read back from the encoding columns: a
+        raw submission as ``(bundles, pi)``, its (idx, val) bundles in
+        submission order and π over them; a pre-packed payload as its
+        ``(idx (B,K), val (B,K), mask (B,), pi (B,))`` rows."""
+        cols = self._cols
+        if cols["kind"][s] == 1:
+            shape = (self.num_bundles, self.k_bound)
+            return (cols["idx"][s].reshape(shape).copy(), cols["val"][s].reshape(shape).copy(),
+                    cols["mask"][s].copy(), cols["pi"][s].copy())
+        bundles = cols["mask"][s]
+        cuts = np.cumsum(cols["nnz"][s][bundles])
+        idx, val = (np.split(cols[name][s].copy(), cuts)[:-1] for name in ("idx", "val"))
+        return tuple(zip(idx, val)), cols["pi"][s][bundles]
+
     def rebuilt(self) -> "MarketBook":
         """From-scratch repack: every live account re-packed from its raw
         submission into the *same slot* of a fresh zeroed book — the
@@ -1161,7 +1164,7 @@ class MarketBook:
             key = self._slot_key[s]
             if key is None:
                 continue
-            acct = self._accounts[key]
+            acct = self._account(s)
             if len(acct) == 2:  # (bundles, pi) raw submission
                 row = fresh._pack_row(*acct)
                 raw.append((s, key, acct))
@@ -1170,7 +1173,6 @@ class MarketBook:
                 packed.append((s, key, acct))
             fresh._key_slot[key] = s
             fresh._slot_key[s] = key
-            fresh._accounts[key] = acct
             b, k = fresh.num_bundles, fresh.k_bound
             lo = s * b * k
             fresh.idx[lo : lo + b * k] = np.asarray(row[0], np.int32).reshape(-1)
@@ -1275,9 +1277,12 @@ class MarketBook:
     def _install_encoded(self, arrays: dict, keys: list) -> None:
         """Fill the encoding columns of the accounts an
         :meth:`_encode_accounts` record holds, from its arrays.  A record
-        whose accounts do not fit this book's B and K raises ValueError."""
+        whose keys, slots and kinds differ in length, or whose accounts do
+        not fit this book's B and K, raises ValueError."""
         slots = np.asarray(arrays["slots"], np.int64)
         packed = np.asarray(arrays["kinds"], np.int8) != 0
+        if not (len(keys) == slots.shape[0] == packed.shape[0]):
+            raise ValueError("account encoding length mismatch")
         counts = np.asarray(arrays["raw_counts"], np.int64)
         b_cap, k_cap = self.num_bundles, self.k_bound
         if counts.shape != (int((~packed).sum()),) or (counts < 0).any() \
@@ -1297,48 +1302,6 @@ class MarketBook:
                             self._packed_columns(*(arrays[f"packed_{name}"] for name in (
                                 "idx", "val", "mask", "pi"))))
 
-    @staticmethod
-    def _decode_accounts(arrays: dict, keys: list):
-        """Inverse of :meth:`_encode_accounts`: yields (key, slot, account)
-        triples in encoding order."""
-        slots = np.asarray(arrays["slots"], np.int64)
-        kinds = np.asarray(arrays["kinds"], np.int8)
-        if not (len(keys) == slots.shape[0] == kinds.shape[0]):
-            raise ValueError("account encoding length mismatch")
-        raw_counts = np.asarray(arrays["raw_counts"], np.int32)
-        raw_nnz = np.asarray(arrays["raw_nnz"], np.int32)
-        raw_idx = np.asarray(arrays["raw_idx"], np.int32)
-        raw_val = np.asarray(arrays["raw_val"], np.float32)
-        raw_pi = np.asarray(arrays["raw_pi"], np.float32)
-        c_raw = c_bundle = c_el = c_pi = c_packed = 0
-        for key, s, kind in zip(keys, slots, kinds):
-            if kind == 0:
-                nb = int(raw_counts[c_raw])
-                c_raw += 1
-                bundles = []
-                for j in range(nb):
-                    n = int(raw_nnz[c_bundle + j])
-                    bundles.append(
-                        (
-                            raw_idx[c_el : c_el + n].copy(),
-                            raw_val[c_el : c_el + n].copy(),
-                        )
-                    )
-                    c_el += n
-                c_bundle += nb
-                pi = raw_pi[c_pi : c_pi + nb].copy()
-                c_pi += nb
-                acct = (tuple(bundles), pi)
-            else:
-                acct = (
-                    np.asarray(arrays["packed_idx"][c_packed], np.int32).copy(),
-                    np.asarray(arrays["packed_val"][c_packed], np.float32).copy(),
-                    np.asarray(arrays["packed_mask"][c_packed], bool).copy(),
-                    np.asarray(arrays["packed_pi"][c_packed], np.float32).copy(),
-                )
-                c_packed += 1
-            yield key, int(s), acct
-
     def export_state(
         self, clear_dirty: bool = False
     ) -> tuple[dict[str, np.ndarray], dict]:
@@ -1348,9 +1311,10 @@ class MarketBook:
         (bundles, pi) submissions are CSR-flattened across accounts and
         pre-packed payloads are stacked, so a 100k-row book checkpoints as
         ~15 arrays instead of ~300k tiny zip members.  Accounts are stored
-        *independently* of the slot arrays, so :meth:`parity_check` on the
-        restored book is a real oracle (a corrupt array region cannot hide
-        behind accounts re-derived from the same bytes).  Keys must be
+        *independently* of the slot arrays, and the restored book keeps them
+        as its one account store (the encoding columns), so
+        :meth:`parity_check` on it is a real oracle (a corrupt array region
+        cannot hide behind accounts re-derived from the same bytes).  Keys must be
         JSON-serializable (the service uses strings throughout).
 
         With ``clear_dirty=True`` the checkpoint-dirty set is reset, making
@@ -1477,15 +1441,12 @@ class MarketBook:
             old = self._slot_key[int(s)]
             if old is not None:
                 self._key_slot.pop(old, None)
-                self._accounts.pop(old, None)
                 self._slot_key[int(s)] = None
         self._cols["live"][rows] = False
         for s, key in zip(rows, meta["row_keys"]):
             if key is not None:
                 self._slot_key[int(s)] = key
                 self._key_slot[key] = int(s)
-        for key, _s, acct in self._decode_accounts(arrays, meta["keys"]):
-            self._accounts[key] = acct
         self._install_encoded(arrays, meta["keys"])
         self._ledger = np.asarray(arrays["ledger"], np.float64).copy()
         self._sell_ledger = np.asarray(arrays["sell_ledger"], np.float64).copy()
@@ -1505,8 +1466,8 @@ class MarketBook:
         The device mirror starts cold on ``device`` (full upload on first
         sync); everything host-side — slot arrays, both f64
         ledgers, key↔slot maps, freelist order (LIFO reuse determinism),
-        generation, and the raw accounts behind the :meth:`rebuilt`
-        oracle — is restored exactly.
+        generation, and the accounts' encoding columns behind the
+        :meth:`rebuilt` oracle — is restored exactly.
         """
         book = cls(
             np.asarray(arrays["base_cost"], np.float32),
@@ -1532,11 +1493,10 @@ class MarketBook:
         book._next_slot = int(meta["next_slot"])
         book._generation = int(meta["generation"])
         book.deltas_applied = int(meta["deltas_applied"])
-        for key, s, acct in cls._decode_accounts(arrays, meta["keys"]):
+        book._install_encoded(arrays, meta["keys"])
+        for s, key in zip(np.asarray(arrays["slots"], np.int64).tolist(), meta["keys"]):
             book._key_slot[key] = s
             book._slot_key[s] = key
-            book._accounts[key] = acct
-        book._install_encoded(arrays, meta["keys"])
         return book
 
 

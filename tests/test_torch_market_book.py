@@ -9,8 +9,6 @@ the reference's CSR mirror, kept by ``_csr_apply_row_deltas``; and
 ``parity_check`` (the full-repack oracle) passes and catches a corrupted
 row.
 """
-import json
-
 import numpy as np
 import pytest
 
@@ -64,12 +62,14 @@ def _assert_books_equal(jb, pb, where):
         assert ja[k].dtype == pa[k].dtype and np.array_equal(ja[k], pa[k]), (where, k)
 
 
-def _assert_dirty_equal(jb, pb, where):
-    (ja, jm), (pa, pm) = jb.export_dirty_state(clear=True), pb.export_dirty_state(clear=True)
+def _assert_dirty_equal(jb, pb, where, clear=True):
+    """Both books' dirty records are equal; returns them."""
+    (ja, jm), (pa, pm) = jb.export_dirty_state(clear=clear), pb.export_dirty_state(clear=clear)
     assert jm == pm, where
     assert ja.keys() == pa.keys(), where
     for k in ja:
         assert ja[k].dtype == pa[k].dtype and np.array_equal(ja[k], pa[k]), (where, k)
+    return (ja, jm), (pa, pm)
 
 
 def _assert_mirrors_equal(jb, pb, where):
@@ -207,98 +207,18 @@ def test_state_and_dirty_records_cross_packages(direction):
     base.parity_check()
 
 
-def _loop_encode(book, live_slots):
-    """The account encoder the book's per-slot columns replaced: a Python
-    loop over the live accounts and each raw account's bundles, reading
-    ``_slot_key`` and ``_accounts``.  Kept as the columns' oracle."""
-    keys, slots, kinds = [], [], []
-    raw_counts, raw_nnz, raw_idx, raw_val, raw_pi = [], [], [], [], []
-    packed_idx, packed_val, packed_mask, packed_pi = [], [], [], []
-    for s in live_slots:
-        key = book._slot_key[s]
-        try:
-            json.dumps(key)
-        except TypeError:
-            raise TypeError(
-                f"book key {key!r} is not JSON-serializable — durable "
-                "books require str/int keys"
-            ) from None
-        acct = book._accounts[key]
-        keys.append(key)
-        slots.append(s)
-        if len(acct) == 2:
-            bundles, pi = acct
-            kinds.append(0)
-            raw_counts.append(len(bundles))
-            raw_pi.append(np.asarray(np.broadcast_to(np.asarray(pi, np.float32),
-                                                     (len(bundles),)), np.float32))
-            for ii, vv in bundles:
-                ii = np.asarray(ii, np.int32).reshape(-1)
-                raw_nnz.append(ii.shape[0])
-                raw_idx.append(ii)
-                raw_val.append(np.asarray(vv, np.float32).reshape(-1))
-        else:
-            kinds.append(1)
-            packed_idx.append(np.asarray(acct[0], np.int32))
-            packed_val.append(np.asarray(acct[1], np.float32))
-            packed_mask.append(np.asarray(acct[2], bool))
-            packed_pi.append(np.asarray(acct[3], np.float32))
-
-    def cat(chunks, dtype):
-        return np.concatenate(chunks).astype(dtype, copy=False) if chunks else np.zeros(0, dtype)
-
-    def stack(chunks, dtype, shape):
-        return (np.stack(chunks).astype(dtype, copy=False) if chunks
-                else np.zeros((0, *shape), dtype))
-
-    return keys, {
-        "slots": np.asarray(slots, np.int64),
-        "kinds": np.asarray(kinds, np.int8),
-        "raw_counts": np.asarray(raw_counts, np.int32),
-        "raw_nnz": np.asarray(raw_nnz, np.int32),
-        "raw_idx": cat(raw_idx, np.int32),
-        "raw_val": cat(raw_val, np.float32),
-        "raw_pi": cat(raw_pi, np.float32),
-        "packed_idx": stack(packed_idx, np.int32, (B, K)),
-        "packed_val": stack(packed_val, np.float32, (B, K)),
-        "packed_mask": stack(packed_mask, bool, (B,)),
-        "packed_pi": stack(packed_pi, np.float32, (B,)),
-    }
-
-
-def _assert_same_encoding(got, want, where):
-    (gk, ga), (wk, wa) = got, want
-    assert gk == wk, where
-    assert list(ga) == list(wa), where
-    for name, w in wa.items():
-        g = ga[name]
-        assert g.dtype == w.dtype and g.shape == w.shape, (where, name, g.dtype, g.shape)
-        assert np.array_equal(g, w), (where, name)
-
-
-def _assert_encoding_is_the_loop(book, where):
-    """Both exporters' accounts are the loop encoder's, key for key and
-    array for array (dtype, shape and value)."""
-    arrays, meta = book.export_state()
-    live = [s for s in range(book._next_slot) if book._slot_key[s] is not None]
-    want = _loop_encode(book, live)
-    _assert_same_encoding((meta["keys"], {k: arrays[k] for k in want[1]}), want, (where, "full"))
-    dirty = sorted(book._ckpt_dirty)
-    arrays, meta = book.export_dirty_state(clear=False)
-    want = _loop_encode(book, [s for s in dirty if book._slot_key[s] is not None])
-    _assert_same_encoding((meta["keys"], {k: arrays[k] for k in want[1]}), want, (where, "dirty"))
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_columnar_encoding_is_the_loop_encoding(seed):
+def test_columnar_encoding_is_the_reference_encoding(seed):
     """A seeded interleaving of raw upserts, packed upserts, the service's
     drain (packed rows carrying their raw accounts), removes with LIFO slot
-    reuse, capacity doublings, delta replays onto a replica and restores:
-    after every step the columns encode what the loop encoder does, on the
-    writer and on the replica, and both books pass ``parity_check``."""
+    reuse, capacity doublings, delta replays onto a replica and restores,
+    through the port's book and the reference's alike: after every step
+    both exporters of the writer and of the replica equal the reference
+    twin's, and both books pass ``parity_check``."""
     rng = np.random.default_rng(seed)
-    book = MarketBook(BASE, B, K, rows_cap=2, device="cpu")
+    book, twin = MarketBook(BASE, B, K, rows_cap=2, device="cpu"), JBook(BASE, B, K, rows_cap=2)
     replica = MarketBook.from_state(*book.export_state(clear_dirty=True), device="cpu")
+    twin_replica = JBook.from_state(*twin.export_state(clear_dirty=True))
     live: list = []
     n_keys = reused = 0
 
@@ -319,30 +239,38 @@ def test_columnar_encoding_is_the_loop_encoding(seed):
         op = rng.random()
         if op < 0.25 or not live:
             (key,) = some_keys(1)
-            book.upsert(key, *_raw(rng))
+            acct = _raw(rng)
+            for b in (book, twin):
+                b.upsert(key, *acct)
         elif op < 0.45:
             keys = some_keys(int(rng.integers(1, 6)))
-            book.upsert_rows(keys, *_packed(rng, len(keys)))
+            rows = _packed(rng, len(keys))
+            for b in (book, twin):
+                b.upsert_rows(keys, *rows)
         elif op < 0.65:
             keys = some_keys(int(rng.integers(1, 6)))
             raw = [_raw(rng) for _ in keys]
             rows = [book._pack_row(*acct) for acct in raw]
-            book.upsert_rows(keys, *(np.stack(a) for a in zip(*rows)), raw=raw)
+            for b in (book, twin):
+                b.upsert_rows(keys, *(np.stack(a) for a in zip(*rows)), raw=raw)
         else:
             for key in [live[i] for i in rng.permutation(len(live))[: int(rng.integers(1, 4))]]:
-                assert book.remove(key)
+                assert book.remove(key) and twin.remove(key)
         live = [book._slot_key[s] for s in range(book._next_slot) if book._slot_key[s] is not None]
         reused += len(free - set(book._free))
-        _assert_encoding_is_the_loop(book, (seed, step))
+        _assert_books_equal(twin, book, (seed, step))
+        records = _assert_dirty_equal(twin, book, (seed, step), clear=step % 5 == 4)
         if step % 5 == 4:
-            replica.apply_dirty_state(*book.export_dirty_state(clear=True))
-            _assert_encoding_is_the_loop(replica, (seed, step, "replica"))
+            twin_replica.apply_dirty_state(*records[0])
+            replica.apply_dirty_state(*records[1])
+            _assert_books_equal(twin_replica, replica, (seed, step, "replica"))
             _assert_books_equal(book, replica, (seed, step))
         if step % 23 == 22:  # the writer and the replica restart from a full record
-            state = book.export_state(clear_dirty=True)
-            book = MarketBook.from_state(*state, device="cpu")
-            replica = MarketBook.from_state(*state, device="cpu")
-            _assert_encoding_is_the_loop(book, (seed, step, "restored"))
+            state, twin_state = book.export_state(clear_dirty=True), twin.export_state(
+                clear_dirty=True)
+            book, replica = (MarketBook.from_state(*state, device="cpu") for _ in range(2))
+            twin, twin_replica = (JBook.from_state(*twin_state) for _ in range(2))
+            _assert_books_equal(twin, book, (seed, step, "restored"))
     assert book.rows_cap >= 16 and reused > 0  # doubled from 2; freed slots taken again
     book.parity_check()
     replica.apply_dirty_state(*book.export_dirty_state(clear=True))
@@ -352,24 +280,26 @@ def test_columnar_encoding_is_the_loop_encoding(seed):
 
 def test_export_raises_for_a_key_json_cannot_hold():
     """A non-JSON key is accepted by a write and refused by both exporters
-    with the loop encoder's TypeError; once withdrawn, the book exports."""
+    with the reference book's TypeError; once withdrawn, the book exports."""
     rng = np.random.default_rng(4)
-    book = MarketBook(BASE, B, K, device="cpu")
-    book.upsert_rows(["a", "b"], *_packed(rng, 2))
+    book, twin = MarketBook(BASE, B, K, device="cpu"), JBook(BASE, B, K)
     odd = frozenset({"not", "json"})
-    book.upsert(odd, *_raw(rng))
-    book.upsert("c", *_raw(rng))
-    live = [s for s in range(book._next_slot) if book._slot_key[s] is not None]
-    with pytest.raises(TypeError) as loop:
-        _loop_encode(book, live)
+    rows, acct, other = _packed(rng, 2), _raw(rng), _raw(rng)
+    for b in (book, twin):
+        b.upsert_rows(["a", "b"], *rows)
+        b.upsert(odd, *acct)
+        b.upsert("c", *other)
+    with pytest.raises(TypeError) as reference:
+        twin.export_state()
     with pytest.raises(TypeError) as full:
         book.export_state()
     with pytest.raises(TypeError) as dirty:
         book.export_dirty_state(clear=False)
-    assert str(full.value) == str(dirty.value) == str(loop.value)
+    assert str(full.value) == str(dirty.value) == str(reference.value)
     assert "not JSON-serializable" in str(full.value)
-    assert book.remove(odd)
-    _assert_encoding_is_the_loop(book, "withdrawn")
+    assert book.remove(odd) and twin.remove(odd)
+    _assert_books_equal(twin, book, "withdrawn")
+    _assert_dirty_equal(twin, book, "withdrawn")
     book.parity_check()
 
 
@@ -393,13 +323,20 @@ def test_a_raw_account_past_the_book_is_refused_where_written():
     book.parity_check()
 
 
-def test_parity_check_catches_a_corrupted_account_column():
-    """The encoding columns are held to columns rebuilt from the accounts."""
+@pytest.mark.parametrize("where", ["in_an_account", "past_its_pairs"])
+def test_parity_check_catches_a_corrupted_account_column(where):
+    """The book's one account store, its encoding columns, is held to the
+    slot arrays through the repack: a corrupt pair shows in the slot arrays,
+    a stray value past a raw account's pairs in the columns themselves."""
     rng = np.random.default_rng(8)
     pb = MarketBook(BASE, B, K, device="cpu")
     pb.upsert_rows([f"a{i}" for i in range(4)], *_packed(rng, 4))
-    pb.upsert("raw", *_raw(rng))
+    pb.upsert("raw", [(np.array([1, 0], np.int32), np.array([2.0, 1.0], np.float32))], 3.0)
     pb.parity_check()
-    pb._cols["val"][pb._key_slot["raw"], 0] += 1.0
-    with pytest.raises(AssertionError, match="account val"):
+    s = pb._key_slot["raw"]
+    if where == "in_an_account":
+        pb._cols["val"][s, 0] += 1.0
+    else:
+        pb._cols["idx"][s, 2] = 1
+    with pytest.raises(AssertionError, match="diverged"):
         pb.parity_check()

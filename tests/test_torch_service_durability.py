@@ -370,8 +370,8 @@ def test_commit_counts_the_accounts_each_record_encoded(tmp_path):
         book = svc.book
 
         def count(slots):
-            held = [book._slot_key[s] for s in slots if book._slot_key[s] is not None]
-            return len(held), sum(len(book._accounts[k]) == 2 for k in held)
+            held = [s for s in slots if book._slot_key[s] is not None]
+            return len(held), int(np.count_nonzero(book._cols["kind"][held] == 0))
 
         seen["full"] = count(range(book._next_slot))
         seen["delta"] = count(sorted(book._ckpt_dirty))
@@ -416,8 +416,29 @@ def test_commit_counts_the_accounts_each_record_encoded(tmp_path):
         if delta is None:
             assert key not in resumed.book, key
             continue
-        bundles, p = resumed.book._accounts[key]
+        bundles, p = resumed.book._account(resumed.book._key_slot[key])
         assert len(bundles) == len(delta.bundles), key
         for (ii, vv), (wi, wv) in zip(bundles, delta.bundles):
             assert np.array_equal(ii, wi) and np.array_equal(vv, np.float32(wv)), key
         assert np.array_equal(p, np.asarray(delta.pi, np.float32)), key
+
+
+def test_a_record_one_key_short_is_refused():
+    """A full or delta record whose keys are one short of its slots is
+    refused with ValueError."""
+    rng = np.random.default_rng(1)
+    book = pt.MarketBook(np.ones(4, np.float32), 2, 3, rows_cap=4, device="cpu")
+    for i in range(3):
+        book.upsert(f"a{i}", [(rng.integers(0, 4, 2).astype(np.int32),
+                               rng.uniform(1, 3, 2).astype(np.float32))], 2.0)
+    arrays, meta = book.export_state(clear_dirty=True)
+    base = pt.MarketBook.from_state(arrays, meta, device="cpu")
+    with pytest.raises(ValueError, match="length mismatch"):
+        pt.MarketBook.from_state(arrays, {**meta, "keys": meta["keys"][:-1]}, device="cpu")
+    book.upsert("a3", [(np.array([1], np.int32), np.array([1.5], np.float32))], 4.0)
+    book.upsert_rows(["p0"], np.zeros((1, 2, 3), np.int32), np.ones((1, 2, 3), np.float32),
+                     np.ones((1, 2), bool), np.full((1, 2), 3.0, np.float32))
+    arrays, meta = book.export_dirty_state(clear=True)
+    assert len(meta["keys"]) == 2
+    with pytest.raises(ValueError, match="length mismatch"):
+        base.apply_dirty_state(arrays, {**meta, "keys": meta["keys"][:-1]})
