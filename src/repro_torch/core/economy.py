@@ -49,7 +49,7 @@ from .auction import (
 )
 from .faults import FaultDraw, FaultModel
 from .fused import DeviceMarketState, build_fused_epoch
-from .policies import BidderPolicy, Observation
+from .policies import BidderPolicy, Observation, row_items, rows_any
 from .reserve import (
     DEFAULT_WEIGHTING,
     RELIABILITY_EMA,
@@ -1009,10 +1009,13 @@ class Economy:
                 f"{len(self.policies)} configured policies"
             )
         obs = self.observation()
-        # perm_keys is this epoch's fresh draw, owned by the caller and not
-        # reused — mutate it in place (policy subsets are disjoint, so no
-        # cross-policy aliasing) and keep one copy as the pre-bias store
-        base_keys = perm_keys.copy()  # post-sticky, pre-bias: next epoch's store
+        n, C = perm_keys.shape
+        stored = self._reach_keys
+        # folded over all N rows at once: the rows that keep their stored
+        # keys, and every policy's reach bias in one (N, C) array, whose
+        # -0.0 elsewhere adds nothing to a key (x + -0.0 is x, -0.0 too)
+        keep: np.ndarray | None = None
+        bias: np.ndarray | None = None
         pi_scale: np.ndarray | None = None
         arb: np.ndarray | None = None
         margin: np.ndarray | None = None
@@ -1031,14 +1034,15 @@ class Economy:
             counts["policy_acted"] += idx.size
             if act.redraw_reach is not None:
                 counts["policy_redraws"] += int(np.count_nonzero(act.redraw_reach))
-                if self._reach_keys is not None:
-                    keep = ~np.asarray(act.redraw_reach, bool)
-                    keep &= ~np.isnan(self._reach_keys[idx]).any(axis=1)
-                    rows = idx[keep]
-                    perm_keys[rows] = self._reach_keys[rows]
-                    base_keys[rows] = self._reach_keys[rows]
+                if stored is not None:
+                    if keep is None:
+                        keep = np.zeros(n, bool)
+                    keep[idx] = ~np.asarray(act.redraw_reach, bool)
             if act.reach_bias is not None:
-                perm_keys[idx] += act.reach_bias
+                if bias is None:
+                    bias = np.full((n, C), -0.0)
+                rb = np.broadcast_to(np.asarray(act.reach_bias, np.float64), (idx.size, C))
+                row_items(bias)[idx] = row_items(np.ascontiguousarray(rb))
             if act.pi_scale is not None:
                 if pi_scale is None:
                     pi_scale = np.ones(len(pop), np.float64)
@@ -1054,6 +1058,18 @@ class Economy:
                 counts["policy_margin_overrides"] += int(
                     np.count_nonzero(act.margin != margin[idx]))
                 margin[idx] = act.margin
+        # the sticky rows' stored keys over the fresh draw, which the caller
+        # owns and does not reuse: it becomes the post-sticky, pre-bias keys,
+        # next epoch's store.  A stored row with a NaN (an arrival's) is no
+        # stored row: its agent takes the fresh draw.
+        if keep is not None:
+            keep &= ~rows_any(np.isnan(stored))
+            np.copyto(row_items(perm_keys), row_items(stored), where=keep)
+        base_keys = perm_keys
+        if bias is None:
+            perm_keys = base_keys.copy()
+        else:  # into the bias array, which nothing else holds
+            perm_keys = np.add(base_keys, bias, out=bias)
         if not dry_run:
             self._reach_keys = base_keys
             self.last_policy_counts = counts

@@ -42,6 +42,10 @@ import dataclasses
 
 import numpy as np
 
+# elements of an (n, C) work array that ``PriceChasingPolicy`` passes over
+# at a time: a block's operands stay in the core's cache
+_BLOCK = 1 << 15
+
 
 @dataclasses.dataclass(frozen=True)
 class Observation:
@@ -85,6 +89,41 @@ class PolicyAction:
     # uses; a large value makes the agent bid its raw value (chasers trust
     # the price signal instead of shading toward belief)
     margin: np.ndarray | None = None  # (n,) float
+
+
+def reduce_rows(ufunc, a: np.ndarray) -> np.ndarray:
+    """(n,) ``ufunc`` folded along each row of the C-contiguous (n, C) ``a``.
+
+    ``ufunc.reduce(a, axis=1)`` runs one inner loop per row, which at C = 8
+    costs more than the arithmetic; here each pass folds adjacent column
+    pairs of every row at once, while the width is even, then the odd
+    columns left one by one.  For an order-free ``ufunc`` (``fmin``,
+    ``fmax``, ``bitwise_or``) the result is the row-wise reduction's.  ``a``
+    is not written."""
+    n, w = a.shape
+    while w > 1 and w % 2 == 0:
+        pairs = a.reshape(n * (w // 2), 2)
+        a = ufunc(pairs[:, 0], pairs[:, 1]).reshape(n, w // 2)
+        w //= 2
+    out = a[:, 0].copy()
+    for c in range(1, w):
+        ufunc(out, a[:, c], out=out)
+    return out
+
+
+def rows_any(mask: np.ndarray) -> np.ndarray:
+    """(n,) whether each row of the C-contiguous (n, C) bool ``mask`` holds
+    a True: its bytes read as the widest unsigned words that tile a row
+    (one word a row at C = 8), OR-ed by :func:`reduce_rows`."""
+    width = next(w for w in (8, 4, 2, 1) if mask.shape[1] % w == 0)
+    return reduce_rows(np.bitwise_or, mask.view(f"u{width}")) != 0
+
+
+def row_items(a: np.ndarray) -> np.ndarray:
+    """The rows of the C-contiguous 2-D ``a`` as an (n,) view of opaque
+    items, one row each: numpy gathers, scatters and selects such an item
+    in one step, where on the 2-D array it runs an inner loop per row."""
+    return a.view(np.dtype((np.void, a.shape[1] * a.itemsize))).reshape(a.shape[0])
 
 
 class BidderPolicy:
@@ -152,31 +191,30 @@ class PriceChasingPolicy(BidderPolicy):
     name = "price_chasing"
 
     # work arrays kept from one ``act`` to the next, grown to the largest
-    # agent count seen: at 10⁵ agents the step's (n, C) temporaries are tens
-    # of MB, and allocating them afresh every epoch costs fresh pages
+    # agent count seen: at 10⁵ agents the step's temporaries are tens of MB,
+    # and allocating them afresh every epoch costs fresh pages
     _scratch: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
 
-    def _buffers(self, n: int, C: int, T: int) -> dict[str, np.ndarray]:
-        """Scratch views over the first ``n`` rows: ``req`` (n, T), ``costs``
-        (n, 2C), ``cheap`` and ``work`` (n, C) float64, ``mask`` (n, C) bool.
-        No action holds one: every array ``act`` returns is made afresh."""
-        shapes = {"req": (T, np.float64), "costs": (2 * C, np.float64),
-                  "cheap": (C, np.float64), "work": (C, np.float64),
-                  "mask": (C, np.bool_)}
+    def _buffers(self, n: int, C: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Scratch views: ``costs`` (n, 2C) float64 over all ``n`` rows, and
+        over one block of rows ``halves`` (2, rows, C) float64 and ``mask``
+        (rows, C) bool.  No action holds one: every array ``act`` returns
+        is made afresh."""
+        rows = max(1, min(n, _BLOCK // C))
         buf = self._scratch
-        if any(buf.get(k) is None or buf[k].shape[0] < n or buf[k].shape[1] != w
-               for k, (w, _) in shapes.items()):
-            buf.update({k: np.empty((n, w), dt) for k, (w, dt) in shapes.items()})
-        return {k: v[:n] for k, v in buf.items()}
+        if buf.get("C") != C or len(buf["costs"]) < n or len(buf["mask"]) < rows:
+            buf.update(C=C, costs=np.empty((n, 2 * C)), halves=np.empty((2, rows, C)),
+                       mask=np.empty((rows, C), bool))
+        return buf["costs"][:n], buf["halves"][:, :rows], buf["mask"][:rows]
 
     def act(self, obs, pop, idx):
         if obs.prices is None:
             return None  # epoch 0: no market signal yet
         n, C, T = idx.size, obs.num_clusters, obs.num_rtypes
-        buf = self._buffers(n, C, T)
-        req = np.take(pop.req, idx, axis=0, out=buf["req"])
+        costs, halves, mask = self._buffers(n, C)
+        req = np.take(pop.req, idx, axis=0)
         # Both cost matrices in one BLAS call: req (n, T) against the price
         # and belief curves stacked as (T, 2C).  Decision logic, not
         # settlement — it does not need bundle_cluster_costs' fixed fold
@@ -189,48 +227,26 @@ class PriceChasingPolicy(BidderPolicy):
             ],
             axis=0,
         ).T  # (T, 2C)
-        costs = np.matmul(req, curves, out=buf["costs"])
-        cost_prev, cost_bel = costs[:, :C], costs[:, C:]  # (n, C) each
-        # > 0: cluster priced below belief
-        cheap = np.subtract(cost_bel, cost_prev, out=buf["cheap"])
-
-        # chase gate: the best realizable move must clear the relocation
-        # friction.  Homed agents compare against their home's price cost;
-        # homeless agents buy regardless, so any below-belief cluster that
-        # clears the friction term is worth chasing.
+        np.matmul(req, curves, out=costs)
         home = pop.home[idx]
         reloc = self.friction * pop.relocation_cost[idx]
-        ar = np.arange(n)
-        home_cl = np.clip(home, 0, C - 1)
-        work, mask = buf["work"], buf["mask"]
-        move_gain = np.subtract(cost_prev[ar, home_cl][:, None], cost_prev, out=work)
-        move_gain -= reloc[:, None]
-        move_gain[ar, home_cl] = -np.inf  # staying home is not a move
-        moves = np.greater(move_gain, 0.0, out=mask).any(axis=1)
-        buys = np.greater(np.subtract(cheap, reloc[:, None], out=work), 0.0,
-                          out=mask).any(axis=1)
-        chase = np.where(home >= 0, moves, buys)
-
-        # bias: fractional cheapness, only on below-belief clusters, only
-        # for chasers.  strength ≥ 2 guarantees a fully-cheap cluster sorts
-        # ahead of every unbiased U(0,1) key.
-        rel = np.maximum(np.abs(cost_bel, out=work), 1e-9, out=work)
-        rel = np.divide(cheap, rel, out=work)
-        scaled = np.multiply(-self.strength, np.clip(rel, 0.0, 1.0, out=work), out=work)
-        np.greater(cheap, 0.0, out=mask)
-        mask &= chase[:, None]
-        bias = np.where(mask, scaled, 0.0)
+        chase = np.empty(n, bool)
+        bias = np.zeros((n, C))
+        # a block of rows at a time, so that every pass reads its operands
+        # from cache rather than from memory
+        rows = len(mask)
+        for lo in range(0, n, rows):
+            hi = min(lo + rows, n)
+            self._chase_rows(costs[lo:hi], home[lo:hi], reloc[lo:hi],
+                             chase[lo:hi], bias[lo:hi], halves, mask)
 
         # placed chasers put their holdings on the market (the packer's
         # trader gate still requires a congested home, psi > 0.75)
         arb = None
         sellers = chase & (pop.placed[idx] >= 0)
         if sellers.any():
-            arb = np.where(
-                sellers,
-                np.maximum(pop.arbitrage[idx], self.sell_prob),
-                pop.arbitrage[idx],
-            )
+            own = pop.arbitrage[idx]
+            arb = np.where(sellers, np.maximum(own, self.sell_prob), own)
 
         # chasers trust the price signal: lift the believed·(1+margin) cap
         # out of the way so their π is raw value − relocation.  The decayed
@@ -245,6 +261,51 @@ class PriceChasingPolicy(BidderPolicy):
         return PolicyAction(
             reach_bias=bias, redraw_reach=redraw, arbitrage=arb, margin=margin
         )
+
+    def _chase_rows(self, costs, home, reloc, chase, bias, halves, mask):
+        """The chase gate and the reach bias of one block of rows, written
+        into ``chase`` (b,) and ``bias`` (b, C), from its ``costs`` (b, 2C);
+        ``halves`` and ``mask`` are scratch of at least b rows."""
+        b, C = bias.shape
+        halves, mask = halves[:, :b], mask[:b]
+        # the two halves copied apart, each contiguous: on a (b, C) half of
+        # ``costs`` numpy's passes run one inner loop per row
+        np.copyto(halves, costs.reshape(b, 2, C).transpose(1, 0, 2))
+        cost_prev, cost_bel = halves
+
+        # chase gate: the best realizable move must clear the relocation
+        # friction.  Homed agents compare against their home's price cost;
+        # homeless agents buy regardless, so any below-belief cluster that
+        # clears the friction term is worth chasing.  Subtraction is
+        # monotone, so some cluster c has cost_home − cost_c − reloc > 0 iff
+        # the cheapest c does, and some has cheap_c − reloc > 0 iff the
+        # cheapest against belief does; fmin and fmax skip NaN as > 0.0
+        # does.  The home's own cost is NaN while the cheapest is found,
+        # since staying home is not a move: with C = 1 no cluster is left,
+        # and no agent moves.
+        home_at = np.arange(0, b * C, C) + np.clip(home, 0, C - 1)
+        flat_prev = cost_prev.reshape(-1)
+        cost_home = flat_prev[home_at]
+        flat_prev[home_at] = np.nan
+        gain = reduce_rows(np.fmin, cost_prev)
+        gain = np.subtract(cost_home, gain, out=gain)
+        np.greater(np.subtract(gain, reloc, out=gain), 0.0, out=chase)
+        flat_prev[home_at] = cost_home
+        # > 0: cluster priced below belief; over the price half, in place
+        cheap = np.subtract(cost_bel, cost_prev, out=cost_prev)
+        homeless = home < 0
+        if homeless.any():
+            buys = reduce_rows(np.fmax, cheap) - reloc > 0.0
+            np.copyto(chase, buys, where=homeless)
+
+        # bias: fractional cheapness, only on below-belief clusters, only
+        # for chasers; 0.0 elsewhere.  strength ≥ 2 guarantees a
+        # fully-cheap cluster sorts ahead of every unbiased U(0,1) key.
+        np.greater(cheap, 0.0, out=mask)
+        mask &= np.repeat(chase, C).reshape(b, C)
+        at = np.flatnonzero(mask)
+        rel = cheap.reshape(-1)[at] / np.maximum(np.abs(cost_bel.reshape(-1)[at]), 1e-9)
+        bias.reshape(-1)[at] = -self.strength * np.clip(rel, 0.0, 1.0)
 
 
 @dataclasses.dataclass

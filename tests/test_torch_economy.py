@@ -197,3 +197,115 @@ def test_stats_match_plain_margins(fused, epoch0, chase):
         _assert_stats_bit_identical(eco.run_epoch(), plain.run_epoch(), e)
     if chase:
         assert eco.last_policy_counts["policy_margin_overrides"] > 0
+
+
+def _fold_oracle(eco, perm_keys, dry_run):
+    """The policy fold as it was written before its whole-array form, row
+    gathers and all: ``(keys, pi_scale, arbitrage, margin, stored keys,
+    counts, marked uids)``, the economy left as it was."""
+    pop, stored = eco.pop, eco._reach_keys
+    obs = eco.observation()
+    base_keys = perm_keys.copy()
+    pi_scale = arb = margin = None
+    marked = set()
+    counts = dict.fromkeys(("policy_acted", "policy_redraws", "policy_sellers",
+                            "policy_margin_overrides"), 0)
+    for pid, pol in enumerate(eco.policies):
+        idx = np.flatnonzero(pop.policy == pid)
+        if idx.size == 0:
+            continue
+        act = pol.act(obs, pop, idx)
+        if act is None:
+            continue
+        marked.update(eco._agent_uid[idx].tolist())
+        counts["policy_acted"] += idx.size
+        if act.redraw_reach is not None:
+            counts["policy_redraws"] += int(np.count_nonzero(act.redraw_reach))
+            if stored is not None:
+                keep = ~np.asarray(act.redraw_reach, bool)
+                keep &= ~np.isnan(stored[idx]).any(axis=1)
+                rows = idx[keep]
+                perm_keys[rows] = stored[rows]
+                base_keys[rows] = stored[rows]
+        if act.reach_bias is not None:
+            perm_keys[idx] += act.reach_bias
+        if act.pi_scale is not None:
+            if pi_scale is None:
+                pi_scale = np.ones(len(pop), np.float64)
+            pi_scale[idx] = act.pi_scale
+        if act.arbitrage is not None:
+            if arb is None:
+                arb = pop.arbitrage.copy()
+            counts["policy_sellers"] += int(np.count_nonzero(act.arbitrage > arb[idx]))
+            arb[idx] = act.arbitrage
+        if act.margin is not None:
+            if margin is None:
+                margin = pop.margins()
+            counts["policy_margin_overrides"] += int(np.count_nonzero(act.margin != margin[idx]))
+            margin[idx] = act.margin
+    if dry_run:
+        base_keys, counts, marked = stored, {}, set()
+    return perm_keys, pi_scale, arb, margin, base_keys, counts, marked
+
+
+class _BroadBias(pt.BidderPolicy):
+    """A user's policy: a float32 bias of one column, broadcast over the
+    clusters, and no redraw choice (every agent draws fresh)."""
+
+    name = "broad_bias"
+
+    def act(self, obs, pop, idx):
+        if obs.prices is None:
+            return None
+        return pt.PolicyAction(reach_bias=np.full((idx.size, 1), -0.25, np.float32),
+                               pi_scale=np.full(idx.size, 0.75))
+
+
+def _same_bits(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("C", [3, 8])
+@pytest.mark.parametrize("case", ["nan_rows", "first_epoch", "no_stored_keys", "dry_run"])
+def test_policy_fold_matches_row_gather_fold(case, C):
+    """``Economy._apply_policies`` against the fold it replaced, bit for
+    bit: effective and stored keys, π scale, sell intent, margin, counts
+    and the agents marked for the service bridge.  Static, chasing,
+    smoothing and a broadcast-bias policy mixed; stored rows with NaN (an
+    arrival's) and fresh keys of -0.0 among them; the first epoch, and one
+    with prices but no stored keys."""
+    mix = [pt.StaticPolicy(), pt.PriceChasingPolicy(sell_prob=0.2),
+           pt.BudgetSmoothingPolicy(), _BroadBias()]
+    eco = pt.fleet_economy(2_000, C, seed=C, device="cpu", policies=mix)
+    eco.pop.policy[:] = np.random.default_rng(C).integers(0, len(mix), len(eco.pop))
+    if case != "first_epoch":
+        eco.run_epoch()
+        eco.run_epoch()
+        assert eco._reach_keys is not None
+        eco._reach_keys[::7] = np.nan
+        eco._reach_keys[3::11, 0] = np.nan
+    if case == "no_stored_keys":  # prices, but nothing stored: every agent draws fresh
+        eco._reach_keys = None
+    rng = np.random.default_rng(100 + C)
+    keys = rng.random((len(eco.pop), C))
+    keys[::13] = -0.0
+    dry = case == "dry_run"
+    stored_before = None if eco._reach_keys is None else eco._reach_keys.copy()
+    eco._dirty_uids.clear()
+    counts_before = dict(eco.last_policy_counts)
+    want = _fold_oracle(eco, keys.copy(), dry)
+    got = eco._apply_policies(keys.copy(), dry)
+    for name, g, w in zip(("keys", "pi_scale", "arbitrage", "margin"), got, want[:4]):
+        assert _same_bits(g, w), (case, C, name)
+    if dry:
+        assert _same_bits(eco._reach_keys, stored_before)
+        assert eco.last_policy_counts == counts_before and not eco._dirty_uids
+    else:
+        assert _same_bits(eco._reach_keys, want[4])
+        assert eco._reach_keys is None or not np.shares_memory(got[0], eco._reach_keys)
+        assert eco.last_policy_counts == want[5]
+        assert eco._dirty_uids == want[6]
+    if case == "nan_rows":
+        assert want[5]["policy_redraws"] < want[5]["policy_acted"]
